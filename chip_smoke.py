@@ -1,0 +1,434 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (signalsmith_stretch_torch) on one NVIDIA GPU.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero before the last line:
+  1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
+  2. build: every kernel source of csrc/ with nvcc, one process each;
+  3. each kernel against its plain PyTorch version on the card, at the
+     shapes the main path gives it (the pitch+12 configuration at batch
+     8 x 10 s stereo 48 kHz): the interp kernel (A) in lerp and taps mode,
+     the slew scan (C) forward and backward, the diagonal sweep (B);
+  4. renders of stereo48k_default_1.25x and stereo48k_pitch+12_tonality8k at
+     batch 8 x 10 s stereo 48 kHz through StretchModel.batched, with the
+     launch counters, finiteness, shape, run-to-run bit identity and a
+     batch-1 render through the kernels against the same render through the
+     plain versions;
+  5. the kernel table as one JSON line, the nvidia-smi line, and the device
+     line {"ok": true, "device": {...}} last.
+
+There is no CPU fallback: without CUDA the script fails.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+RATE = 48000
+SECONDS = 10.0
+BATCH = 8
+CONFIGS = (
+    ("stereo48k_default_1.25x", 1.25, {}),
+    ("stereo48k_pitch+12_tonality8k", 1.0, dict(semitones=12,
+                                                tonality_hz=8000)),
+)
+MAPPED = CONFIGS[1]
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 flop/s
+# outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+
+DEVICE = "cuda"
+# timed repeats: kernels (CUDA events), plain versions, whole renders
+KERNEL_REPS, PLAIN_REPS, RENDER_REPS = 20, 2, 3
+
+# the kernels: (name, source, the TPU code it replaces)
+KERNELS = (
+    ("interp_multi", "signalsmith_stretch_torch/csrc/interp.cu",
+     "signalsmith_stretch_tpu/ops/pallas/interp.py:37"),
+    ("sweep", "signalsmith_stretch_torch/csrc/sweep.cu",
+     "signalsmith_stretch_tpu/wavefront.py:169"),
+    ("iir", "signalsmith_stretch_torch/csrc/scan.cu",
+     "signalsmith_stretch_tpu/ops/scan_ops.py:60"),
+)
+
+
+def make_corpus(batch, channels, in_len, rate, seed=0):
+    """The clips bench.py renders: two sines plus noise, rolled per clip
+    and channel, plus independent noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(in_len) / rate
+    base = (0.4 * np.sin(2 * np.pi * 220 * t)
+            + 0.2 * np.sin(2 * np.pi * 440 * t)
+            + 0.05 * rng.standard_normal(in_len))
+    clips = np.stack([np.stack([np.roll(base, 13 * c + 7 * b)
+                                for c in range(channels)])
+                      for b in range(batch)]).astype(np.float32)
+    clips += 0.01 * rng.standard_normal(clips.shape).astype(np.float32)
+    return clips
+
+
+def rel_err_db(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return 10 * np.log10(np.mean((a - b) ** 2) / (np.mean(b ** 2) + 1e-30)
+                         + 1e-30)
+
+
+def band_energy_db(x, nbands=24):
+    """Per-channel energies of nbands equal-width bands, in dB."""
+    spec = np.abs(np.fft.rfft(x * np.hanning(x.shape[-1]), axis=-1)) ** 2
+    edges = np.linspace(0, spec.shape[-1], nbands + 1, dtype=int)
+    e = np.stack([spec[..., a:b].sum(-1) for a, b in zip(edges, edges[1:])],
+                 -1)
+    return 10 * np.log10(e + 1e-20)
+
+
+def smi_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def cuda_ms(fn, reps, warm=1):
+    """Median device time of fn() in ms (CUDA events around each call)."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound_ms(nbytes, flops):
+    """The least time for the work: bytes at the HBM rate or flops at the
+    float32 rate, whichever is longer."""
+    tb, to = nbytes / PEAK_BYTES, flops / PEAK_F32
+    return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def max_abs(a, b):
+    import torch
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    return float((a.double() - b.double()).abs().max())
+
+
+def header():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    # full float32 everywhere: no TF32 matmul or convolution
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi_line())
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"device {torch.cuda.get_device_name(0)}, "
+          f"count {torch.cuda.device_count()}")
+    print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+          f"cudnn {torch.backends.cudnn.allow_tf32}")
+
+
+def build_kernels():
+    from signalsmith_stretch_torch.ops import _build
+    t0 = time.perf_counter()
+    report = _build.build()
+    for name, (secs, log) in report.items():
+        usage = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"built csrc/{name}.cu in {secs:.1f} s: {'; '.join(usage)}")
+    print(f"build: {time.perf_counter() - t0:.1f} s for "
+          f"{len(report)} sources")
+    for name in _build.SOURCES:
+        _build.entry(name)
+
+
+def _model(cfg, batch):
+    from signalsmith_stretch_torch.models import StretchModel
+    name, time_factor, kw = cfg
+    in_len = int(RATE * SECONDS)
+    out_len = int(round(in_len * time_factor))
+    model = StretchModel.build(channels=2, sample_rate=RATE,
+                               in_samples=in_len, out_samples=out_len,
+                               device=DEVICE, **kw)
+    clips = make_corpus(batch, 2, in_len, RATE)
+    return model, clips
+
+
+def check_kernels():
+    """Phase 3: each kernel against its plain version at the main path's
+    shapes.  Returns {name: entry} with the measured numbers."""
+    import torch
+    from signalsmith_stretch_torch import engine, planner, wavefront
+    from signalsmith_stretch_torch.ops import interp, scan_ops
+
+    model, clips = _model(MAPPED, BATCH)
+    audio = torch.as_tensor(clips, device=DEVICE)
+    plan = model.plan
+    spectra, prev = engine.analyze_stage(audio, plan)
+    inputs, dbg = planner.plan_spectral(spectra, prev, plan.arrays,
+                                        model.controls, model.flags,
+                                        plan.consts, plain=True, debug=True)
+    torch.cuda.synchronize()
+    entries = {}
+
+    # --- A: interp_multi, lerp (the main path's call) and taps ------------
+    planes, pos_sets = dbg["interp"]
+    taps_sets = [(p, n, True) for p, n, _ in pos_sets]
+    err = 0.0
+    for sets, mode in ((pos_sets, "lerp"), (taps_sets, "taps")):
+        got, viol = interp.interp_multi(planes, sets)
+        ref, _ = interp.interp_multi_plain(planes, sets)
+        for g, r in zip(got, ref):
+            g = g if isinstance(g, tuple) else (g,)
+            r = r if isinstance(r, tuple) else (r,)
+            for gg, rr in zip(g, r):
+                e = max_abs(gg, rr)
+                err = max(err, e)
+                if not torch.equal(gg, rr):
+                    raise SystemExit(f"interp_multi ({mode}): kernel differs "
+                                     f"from the plain version, max abs {e}")
+        if viol != 0:
+            raise SystemExit(f"interp_multi: {viol} violations, expected 0")
+        print(f"A interp_multi {mode}: planes {tuple(planes.shape)}, "
+              f"sets {[(n, t) for _, n, t in sets]}: bit-equal to the plain "
+              f"version")
+    rows, n, W0 = planes.shape
+    B = pos_sets[0][0].shape[1]
+    nout = sum(ns for _, ns, _ in pos_sets)
+    ms = cuda_ms(lambda: interp.interp_multi(planes, pos_sets), KERNEL_REPS)
+    plain = cuda_ms(lambda: interp.interp_multi_plain(planes, pos_sets), 3)
+    nbytes = 4 * (rows * n * W0 + rows * len(pos_sets) * B + rows * nout * B)
+    flops = 3 * rows * nout * B + 2 * rows * len(pos_sets) * B
+    entries["interp_multi"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                   bound=bound_ms(nbytes, flops))
+
+    # --- C: the slew scan, backward and forward ---------------------------
+    x = dbg["energy"]
+    init = torch.zeros(x.shape[0], dtype=torch.float32, device=DEVICE)
+    slew = plan.consts.slew
+    err = 0.0
+    for backward in (True, False):
+        y, fin = scan_ops.iir(x, init, slew, backward=backward)
+        yp, finp = scan_ops.iir_plain(x, init, slew, backward=backward)
+        err = max(err, max_abs(y, yp), max_abs(fin, finp))
+        if not (torch.equal(y, yp) and torch.equal(fin, finp)):
+            raise SystemExit(f"iir (backward={backward}): kernel differs "
+                             f"from the plain version, max abs {err}")
+        print(f"C iir {'backward' if backward else 'forward'}: "
+              f"{tuple(x.shape)}: bit-equal to the plain version")
+    ms = cuda_ms(lambda: scan_ops.iir(x, init, slew), KERNEL_REPS)
+    plain = cuda_ms(lambda: scan_ops.iir_plain(x, init, slew), PLAIN_REPS)
+    R, Bx = x.shape
+    entries["iir"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                          bound=bound_ms(4 * (2 * R * Bx + 2 * R),
+                                         3 * R * Bx))
+
+    # --- B: the diagonal sweep --------------------------------------------
+    longv = plan.consts.long_vertical_step
+    got = wavefront.sweep(inputs, longv)
+    t0 = time.perf_counter()
+    ref = wavefront.sweep_plain(inputs, longv)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = max_abs(got, ref)
+    batch_, nB, Bs = inputs.a1.shape
+    ch = len(inputs.pi)
+    if torch.equal(got, ref):
+        gate = "bit-equal to the plain version"
+    else:
+        # chaos-relative: the plain sweep's own response to a 1-ulp change
+        # of its inputs is the floor the kernel is held to
+        pert = inputs._replace(pe=tuple(
+            torch.nextafter(p, torch.full_like(p, np.inf)) for p in inputs.pe))
+        ref2 = wavefront.sweep_plain(pert, longv)
+        sens = rel_err_db(torch.view_as_real(ref2).cpu(),
+                          torch.view_as_real(ref).cpu())
+        dev_db = rel_err_db(torch.view_as_real(got).cpu(),
+                            torch.view_as_real(ref).cpu())
+        if not dev_db < sens + 12.0:
+            raise SystemExit(f"sweep: kernel {dev_db:.1f} dB from the plain "
+                             f"version, 1-ulp sensitivity {sens:.1f} dB")
+        gate = (f"NOT bit-equal: {dev_db:.1f} dB from the plain version, "
+                f"within 12 dB of its 1-ulp sensitivity {sens:.1f} dB")
+    print(f"B sweep: [batch {batch_}, nB {nB}, B {Bs}], ch {ch}, LV {longv}, "
+          f"D {Bs + (nB - 1) * (longv + 1)} diagonals: {gate} "
+          f"(plain sweep {plain_s:.1f} s)")
+    ms = cuda_ms(lambda: wavefront.sweep(inputs, longv), KERNEL_REPS // 4)
+    plain = cuda_ms(lambda: wavefront.sweep_plain(inputs, longv),
+                    PLAIN_REPS, warm=0)
+    cells = batch_ * nB * Bs
+    # per cell: a1, a2, d1, d2 (complex), mc, pe and pi per channel in, the
+    # outputs per channel out; ~62 flops for two channels
+    nbytes = cells * (4 * 8 + 4 + ch * 4 + ch * 8 + ch * 8)
+    flops = cells * (30 + 16 * ch)
+    entries["sweep"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                            bound=bound_ms(nbytes, flops))
+    for name, e in entries.items():
+        print(f"{name}: max abs difference {e['max_abs_err']:g}, kernel "
+              f"{e['ms']:.3f} ms, plain {e['plain_ms']:.1f} ms, bound "
+              f"{e['bound'][0]:.4f} ms ({e['bound'][1]}), library: none (no "
+              f"single PyTorch call computes it)")
+    del inputs, dbg, spectra, prev, audio
+    torch.cuda.empty_cache()
+    return entries
+
+
+def counters():
+    from signalsmith_stretch_torch import wavefront
+    from signalsmith_stretch_torch.ops import interp, scan_ops
+    return {"interp_multi": interp.launches, "sweep": wavefront.launches,
+            "iir": scan_ops.launches}
+
+
+def reset_counters():
+    from signalsmith_stretch_torch import wavefront
+    from signalsmith_stretch_torch.ops import interp, scan_ops
+    interp.launches = wavefront.launches = scan_ops.launches = 0
+
+
+def stage_split(model, audio):
+    """Device ms of analysis, plan, sweep and synthesis for one render."""
+    import torch
+    from signalsmith_stretch_torch import engine, planner, wavefront
+    plan = model.plan
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    spectra, prev = engine.analyze_stage(audio, plan)
+    ev[1].record()
+    inputs = planner.plan_spectral(spectra, prev, plan.arrays, model.controls,
+                                   model.flags, plan.consts)
+    ev[2].record()
+    out_specs = wavefront.sweep(inputs, plan.consts.long_vertical_step)
+    ev[3].record()
+    engine.synthesis_stage(out_specs, plan, audio=audio)
+    ev[4].record()
+    ev[4].synchronize()
+    names = ("analysis", "plan", "sweep", "synthesis")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def render_config(cfg):
+    """Phase 4 for one configuration.  Returns the launch counts of the
+    counted render."""
+    import torch
+    name, _, _ = cfg
+    model, clips = _model(cfg, BATCH)
+    audio = torch.as_tensor(clips, device=DEVICE)
+    model.batched(audio)                       # first call: set-up
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    out = model.batched(audio)                 # the counted main-path run
+    torch.cuda.synchronize()
+    counts = counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = ({"interp_multi": 1, "sweep": 1, "iir": 4} if model.flags.mapped
+            else {"interp_multi": 0, "sweep": 1, "iir": 0})
+    if counts != want:
+        raise SystemExit(f"{name}: kernel launches {counts}, expected {want}")
+    shape = (BATCH, 2, model.out_samples)
+    if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+        raise SystemExit(f"{name}: output {tuple(out.shape)} (want {shape}) "
+                         f"or not finite")
+
+    times = []
+    for _ in range(RENDER_REPS):
+        t0 = time.perf_counter()
+        again = model.batched(audio)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not torch.equal(again, out):
+            raise SystemExit(f"{name}: two renders of the same clips differ")
+    secs = statistics.median(times)
+    audio_s = BATCH * model.in_samples / RATE
+    split = stage_split(model, audio)
+
+    # one clip through the kernels against the same clip through the plain
+    # versions, both on the card
+    one = audio[:1]
+    k_out = model.batched(one)
+    p_out = model.batched(one, plain=True)
+    if torch.equal(k_out, p_out):
+        gate = "bit-equal"
+    else:
+        pert = torch.nextafter(one, torch.full_like(one, np.inf))
+        p2 = model.batched(pert, plain=True).cpu().numpy()
+        k, p = k_out.cpu().numpy(), p_out.cpu().numpy()
+        sens = rel_err_db(p2, p)
+        dev_db = rel_err_db(k, p)
+        band = np.abs(band_energy_db(k) - band_energy_db(p)).max()
+        if not (dev_db < sens + 12.0 and band <= 3.0):
+            raise SystemExit(f"{name}: kernel render {dev_db:.1f} dB from "
+                             f"the plain render (1-ulp sensitivity "
+                             f"{sens:.1f} dB), band energies within "
+                             f"{band:.2f} dB")
+        gate = (f"not bit-equal: {dev_db:.1f} dB, 1-ulp sensitivity "
+                f"{sens:.1f} dB, band energies within {band:.2f} dB")
+    print(f"{name}: batch {BATCH} x {SECONDS:g} s stereo {RATE} Hz -> "
+          f"{tuple(out.shape)}; render {secs * 1e3:.1f} ms (median of "
+          f"{RENDER_REPS}, {[round(t * 1e3, 1) for t in times]}), realtime "
+          f"factor {audio_s / secs:.1f}x; stages (ms) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+          + f"; peak memory {peak / 2**30:.2f} GiB; launches {counts}; "
+          f"two renders bit-identical; batch-1 kernels vs plain: {gate}")
+    del out, again, audio
+    torch.cuda.empty_cache()
+    return counts
+
+
+def main():
+    import torch
+    import signalsmith_stretch_torch  # noqa: F401  (fails outside a checkout)
+    t_start = time.perf_counter()
+    header()
+    build_kernels()
+    entries = check_kernels()
+    launches = {name: 0 for name, _, _ in KERNELS}
+    for cfg in CONFIGS:
+        for k, v in render_config(cfg).items():
+            launches[k] += v
+    table = []
+    for name, source, replaces in KERNELS:
+        e = entries[name]
+        table.append(dict(name=name, route="cuda", source=source,
+                          replaces=replaces, launches=launches[name],
+                          max_abs_err=e["max_abs_err"], ms=e["ms"],
+                          plain_ms=e["plain_ms"], bound_ms=e["bound"][0],
+                          bound_by=e["bound"][1], library_ms=None))
+    missing = [t["name"] for t in table if t["launches"] < 1]
+    if missing:
+        raise SystemExit(f"kernels never launched on the main path: {missing}")
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(smi_line())
+    print(json.dumps({"kernels": table}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

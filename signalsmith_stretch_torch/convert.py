@@ -1,0 +1,115 @@
+"""Carry a render's static state across as plain numpy arrays.
+
+The system has no learned weights: its state is the static plan (schedule,
+frame indices, WOLA weight, silence plan, STFT basis, spectral constants)
+plus the controls and flags.  `plan_to_arrays` flattens it into a dict of
+numpy arrays and scalars, reading attributes only, so it accepts the plan of
+either package; `plan_from_arrays` and `controls_from_arrays` rebuild the
+port's objects from such a dict.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from . import schedule as sched_mod
+from .config import StretchConfig
+from .engine import ExactPlan, SilencePlan
+from .spectral import Controls, SpectralConsts, SpectralFlags
+from .stft import StftBasis
+
+_CFG = ("channels", "block_samples", "interval_samples", "split_computation")
+_SCHED = ("in_samples", "out_samples", "valid", "timeline_len", "ring_len",
+          "preroll_len", "main_out", "flush_block_out", "tail_len",
+          "playback_rate", "seek_length", "surplus", "seek_samples", "main_in",
+          "n_preroll_blocks", "n_main_blocks")
+_BASIS = ("window", "twist", "fft_samples", "block_samples", "bands")
+_CONSTS = ("bands", "channels", "fft_samples", "interval",
+           "long_vertical_step", "smoothing_bins", "slew", "rotor",
+           "band_freq")
+_PLAN = ("weight", "frame_idx", "re_rows", "re_frame_idx")
+_SILENCE = ("possible", "main_possible", "flush_possible_pre",
+            "flush_possible_alone", "pre_weight", "pm_weight")
+_ARRAYS = ("analysis_end", "out_pos", "new_spectrum", "reanalyse",
+           "time_factor")
+_SEGMENT_KINDS = ("zeros", "input")
+
+
+def _spans(spans) -> np.ndarray:
+    return np.asarray(spans, np.int64).reshape(-1, 4)
+
+
+def plan_to_arrays(plan, controls=None, flags=None) -> dict:
+    """Flatten a plan (and optionally its controls and flags) to numpy."""
+    d = {}
+    for k in _CFG:
+        d["cfg." + k] = np.asarray(getattr(plan.cfg, k))
+    for k in _SCHED:
+        d["sched." + k] = np.asarray(getattr(plan.sched, k))
+    d["sched.segments"] = np.asarray(
+        [(_SEGMENT_KINDS.index(s.kind), s.length, s.src_offset)
+         for s in plan.sched.segments], np.int64).reshape(-1, 3)
+    for k in _BASIS:
+        d["basis." + k] = np.asarray(getattr(plan.basis, k))
+    for k in _CONSTS:
+        d["consts." + k] = np.asarray(getattr(plan.consts, k))
+    for k in _PLAN:
+        d[k] = np.asarray(getattr(plan, k))
+    for k in _ARRAYS:
+        if k in plan.arrays:
+            d["arrays." + k] = np.asarray(plan.arrays[k])
+    sil = plan.silence
+    if sil is not None:
+        for k in _SILENCE:
+            d["silence." + k] = np.asarray(getattr(sil, k))
+        if sil.pass_idx is not None:
+            d["silence.pass_idx"] = np.asarray(sil.pass_idx)
+        d["silence.pre_spans"] = _spans(sil.pre_spans)
+        d["silence.pm_spans"] = _spans(sil.pm_spans)
+    if controls is not None:
+        d["controls.freq_multiplier"] = np.float32(controls.freq_multiplier)
+        d["controls.freq_tonality_limit"] = np.float32(
+            controls.freq_tonality_limit)
+    if flags is not None:
+        d["flags.mapped"] = np.asarray(bool(flags.mapped))
+    return d
+
+
+def _scalar(v):
+    return v.item() if isinstance(v, np.ndarray) and v.ndim == 0 else v
+
+
+def plan_from_arrays(d: dict) -> ExactPlan:
+    """Rebuild the port's ExactPlan from a plan_to_arrays dict."""
+    cfg = StretchConfig(*[_scalar(d["cfg." + k]) for k in _CFG])
+    sch = sched_mod.ExactSchedule(cfg=cfg, **{
+        k: _scalar(d["sched." + k]) for k in _SCHED})
+    sch.playback_rate = np.float32(sch.playback_rate)
+    sch.segments = [sched_mod.TimelineSegment(_SEGMENT_KINDS[kind], int(n),
+                                              int(src))
+                    for kind, n, src in d["sched.segments"]]
+    arrays = {k: d["arrays." + k] for k in _ARRAYS if "arrays." + k in d}
+    if arrays:
+        sch.blocks = [sched_mod.BlockRecord(int(e), int(p), bool(n), bool(r),
+                                            np.float32(tf))
+                      for e, p, n, r, tf in zip(*[arrays[k] for k in _ARRAYS])]
+    basis = StftBasis(*[_scalar(d["basis." + k]) for k in _BASIS])
+    consts = SpectralConsts(*[_scalar(d["consts." + k]) for k in _CONSTS])
+    silence = None
+    if "silence.possible" in d:
+        s = {k: _scalar(d["silence." + k]) for k in _SILENCE}
+        silence = SilencePlan(
+            s["possible"], s["main_possible"], s["flush_possible_pre"],
+            s["flush_possible_alone"], d.get("silence.pass_idx"),
+            tuple(tuple(int(v) for v in row) for row in d["silence.pre_spans"]),
+            s["pre_weight"],
+            tuple(tuple(int(v) for v in row) for row in d["silence.pm_spans"]),
+            s["pm_weight"])
+    return ExactPlan(cfg, sch, basis, consts,
+                     *[d[k] for k in _PLAN], arrays, silence=silence)
+
+
+def controls_from_arrays(d: dict):
+    """(Controls, SpectralFlags) from a plan_to_arrays dict."""
+    return (Controls(np.float32(d["controls.freq_multiplier"]),
+                     np.float32(d["controls.freq_tonality_limit"])),
+            SpectralFlags(mapped=bool(d["flags.mapped"])))

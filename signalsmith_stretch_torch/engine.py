@@ -1,0 +1,304 @@
+"""Offline rendering engine: exact() as a few batched tensor stages.
+
+The reference's exact() (signalsmith-stretch.h:467-491) chains outputSeek ->
+process -> flush over shared ring state.  Here the chain is: static schedule
+(schedule.py, host) -> timeline and frame windows -> batched modified-FFT
+analysis -> the planned spectral pipeline (planner + diagonal sweep) ->
+batched inverse FFT -> overlap-add -> WOLA-normalised assembly with the
+pre-roll cancellation (outputSeek :198-203), the reversed-tail subtraction
+(flush :444-454) and the silence bypass (:240-278) as closed-form tensor ops.
+Every stage carries the clip batch as its leading dimension.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import schedule as sched_mod
+from . import spectral, stft, wavefront
+from .config import NOISE_FLOOR, StretchConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ExactPlan:
+    """Everything static needed to render one (config, in_len, out_len) shape."""
+    cfg: StretchConfig
+    sched: sched_mod.ExactSchedule
+    basis: stft.StftBasis
+    consts: spectral.SpectralConsts
+    weight: np.ndarray          # [ring_len] float32, floored WOLA weights
+    frame_idx: np.ndarray       # [nBlocks, block] timeline indices
+    re_rows: np.ndarray         # indices of blocks needing re-analysis
+    re_frame_idx: np.ndarray    # [nRe, block] timeline indices for those
+    arrays: dict                # per-block flag/factor arrays
+    silence: "SilencePlan" = None
+
+
+@dataclasses.dataclass(frozen=True)
+class SilencePlan:
+    """Static data for the silence bypass (signalsmith-stretch.h:240-278).
+
+    In exact() the counter starts at 0 (reset, :56), so the pre-roll process
+    always runs normally; the main process bypasses iff its whole input
+    segment and the pre-roll segment are below the noise floor and the
+    pre-roll already pushed the counter past 2*block (surplus >= 2*block);
+    the flush zero-input process bypasses iff the main segment was silent and
+    the counter crosses 2*block by then.  Bypassed stages write passthrough
+    or zeros, never touch the ring and do not advance the output read head,
+    so the bypass tails re-read a restricted-block ring at an un-advanced
+    head.  Only the two energy tests depend on the audio.
+    """
+    possible: bool                      # any bypass statically reachable
+    main_possible: bool                 # surplus >= 2*block
+    flush_possible_pre: bool            # surplus + main_in >= 2*block
+    flush_possible_alone: bool          # main_in >= 2*block
+    pass_idx: np.ndarray                # [main_out] int32 into audio, or None
+    pre_spans: tuple                    # ((k, a, b, off), ...) block slices
+    pre_weight: np.ndarray              # [2*T] float32 restricted WOLA weight
+    pm_spans: tuple                     # the same for pre-roll + main blocks
+    pm_weight: np.ndarray
+
+
+def _tail_window(basis: stft.StftBasis, out_pos: np.ndarray, ring_len: int,
+                 w0: int, width: int):
+    """Static contributions of the given blocks to ring[w0:w0+width]:
+    spans (block row k, ring start a, ring end b, block-local offset) and the
+    restricted floored WOLA weight over the window."""
+    block = basis.block_samples
+    spans = []
+    for k, p in enumerate(out_pos):
+        p = int(p)
+        a, b = max(w0, p), min(w0 + width, p + block)
+        if a < b:
+            spans.append((k, a, b, a - p))
+    weight = stft.wola_weight(basis, ring_len, out_pos)[w0:w0 + width]
+    return tuple(spans), weight
+
+
+def build_silence_plan(sch: sched_mod.ExactSchedule, basis: stft.StftBasis,
+                       arrays: dict) -> SilencePlan:
+    block = sch.cfg.block_samples
+    main_possible = sch.surplus >= 2 * block and sch.main_out > 0
+    flush_pre = sch.surplus + sch.main_in >= 2 * block
+    flush_alone = sch.main_in >= 2 * block
+    possible = (main_possible or
+                ((flush_pre or flush_alone) and sch.flush_block_out > 0))
+    if not possible:
+        return SilencePlan(False, False, False, False, None, (),
+                           np.zeros(0, np.float32), (), np.zeros(0, np.float32))
+    L, T = sch.preroll_len, sch.tail_len
+    # bypass passthrough: outputs[i] = inputs[seekLength + i % mainIn] (:253-256)
+    if sch.main_in > 0:
+        pass_idx = (sch.seek_length
+                    + np.arange(sch.main_out, dtype=np.int64) % sch.main_in
+                    ).astype(np.int32)
+    else:
+        pass_idx = None
+    out_pos = arrays["out_pos"]
+    n_pre, n_pm = sch.n_preroll_blocks, sch.n_preroll_blocks + sch.n_main_blocks
+    pre_spans, pre_weight = _tail_window(basis, out_pos[:n_pre], sch.ring_len,
+                                         L, 2 * T)
+    pm_spans, pm_weight = _tail_window(basis, out_pos[:n_pm], sch.ring_len,
+                                       L + sch.main_out, 2 * T)
+    return SilencePlan(True, main_possible, flush_pre, flush_alone, pass_idx,
+                       pre_spans, pre_weight, pm_spans, pm_weight)
+
+
+def build_exact_plan(cfg: StretchConfig, in_samples: int,
+                     out_samples: int) -> ExactPlan:
+    sch = sched_mod.build_exact_schedule(cfg, in_samples, out_samples)
+    basis = stft.StftBasis.for_config(cfg)
+    consts = spectral.SpectralConsts.for_config(cfg)
+    if not sch.valid:
+        return ExactPlan(cfg, sch, basis, consts, np.zeros(1, np.float32),
+                         np.zeros((0, 0), np.int32), np.zeros(0, np.int32),
+                         np.zeros((0, 0), np.int32), {})
+    arrays = sched_mod.block_arrays(sch)
+    block = cfg.block_samples
+    ends = arrays["analysis_end"]
+    base = np.arange(block, dtype=np.int32)
+    frame_idx = (ends[:, None] - block + base[None, :]).astype(np.int32)
+    # analysis of the previous frame, one interval back (:335-341)
+    re_rows = np.where(arrays["reanalyse"])[0].astype(np.int32)
+    re_frame_idx = (ends[re_rows, None] - cfg.interval_samples - block
+                    + base[None, :]).astype(np.int32)
+    # frames may reach before the timeline start (conceptual zero history)
+    weight = stft.wola_weight(basis, sch.ring_len, arrays["out_pos"])
+    return ExactPlan(cfg, sch, basis, consts, weight, frame_idx, re_rows,
+                     re_frame_idx, arrays,
+                     silence=build_silence_plan(sch, basis, arrays))
+
+
+def _build_timeline(audio: torch.Tensor, plan: ExactPlan) -> torch.Tensor:
+    """audio [batch, ch, in_samples] -> virtual input timeline
+    [batch, ch, timeline_len]."""
+    parts = []
+    for seg in plan.sched.segments:
+        if seg.kind == "zeros":
+            parts.append(audio.new_zeros(audio.shape[:2] + (seg.length,)))
+        else:
+            parts.append(audio[..., seg.src_offset:seg.src_offset + seg.length])
+    return torch.cat(parts, -1)
+
+
+def gather_frames(timeline: torch.Tensor, starts: np.ndarray,
+                  block: int) -> torch.Tensor:
+    """Frame windows: timeline [batch, ch, T] -> [batch, nF, ch, block].
+
+    One strided view of every window (`unfold`) indexed at the static frame
+    starts; starts may be negative for the first frames (zero history)."""
+    T = timeline.shape[-1]
+    front = max(0, -int(starts.min()))
+    back = max(0, int(starts.max()) + block - T)
+    windows = F.pad(timeline, (front, back)).unfold(-1, block, 1)
+    idx = torch.as_tensor(starts.astype(np.int64) + front,
+                          device=timeline.device)
+    return windows[:, :, idx].transpose(1, 2)
+
+
+def analyze_stage(audio: torch.Tensor, plan: ExactPlan):
+    """Timeline + frames + modified-FFT analysis.  Returns (spectra,
+    prev_spectra), both [batch, nB, ch, B] complex64; prev_spectra holds the
+    re-analysis one interval back for the blocks in plan.re_rows, else 0."""
+    timeline = _build_timeline(audio, plan)
+    block = plan.cfg.block_samples
+    nB = plan.frame_idx.shape[0]
+    if not len(plan.re_rows):
+        spectra = stft.analyze(gather_frames(timeline, plan.frame_idx[:, 0],
+                                             block), plan.basis)
+        return spectra, torch.zeros_like(spectra)
+    # one window gather + one batched FFT for main and re-analysis frames
+    starts = np.concatenate([plan.frame_idx[:, 0], plan.re_frame_idx[:, 0]])
+    both = stft.analyze(gather_frames(timeline, starts, block), plan.basis)
+    spectra = both[:, :nB]
+    if len(plan.re_rows) == nB:     # fixed-rate renders re-analyse every block
+        return spectra, both[:, nB:]
+    prev = torch.zeros_like(spectra)
+    prev[:, torch.as_tensor(plan.re_rows, device=audio.device)] = both[:, nB:]
+    return spectra, prev
+
+
+def spectral_stage(spectra, prev_spectra, plan: ExactPlan,
+                   controls: spectral.Controls, flags: spectral.SpectralFlags,
+                   plain: bool = False):
+    """The spectral processor over all blocks: [batch, ch, nB, B] complex64."""
+    return wavefront.spectral_all_blocks(spectra, prev_spectra, plan.arrays,
+                                         controls, flags, plan.consts, plain)
+
+
+def _overlap_add(blocks_t: torch.Tensor, out_pos: np.ndarray,
+                 ring_len: int, block: int, interval: int) -> torch.Tensor:
+    """blocks_t [batch, ch, nB, block] -> ring [batch, ch, ring_len].
+
+    Blocks sit every `interval` samples.  Blocks k = g, g+m, g+2m, ... (with
+    m = ceil(block/interval)) never overlap, so each group is its blocks laid
+    end to end (a reshape), and the ring is the sum of the m group strips,
+    added in group order."""
+    batch, ch, n_b, _ = blocks_t.shape
+    first = int(out_pos[0])
+    m = -(-block // interval)
+    pad = m * interval - block
+    total = blocks_t.new_zeros((batch, ch, ring_len))
+    for g in range(m):
+        grp = blocks_t[:, :, g::m]
+        n_g = grp.shape[2]
+        if not n_g:
+            continue
+        flat = F.pad(grp, (0, pad)).reshape(batch, ch, n_g * m * interval)
+        ofs = first + g * interval
+        seg = max(0, min(n_g * m * interval, ring_len - ofs))
+        if seg:
+            total[..., ofs:ofs + seg] += flat[..., :seg]
+    return total
+
+
+def _bypass_tail(blocks_t, spans, weight, w0: int, T: int, L: int, preroll):
+    """Flush tail (:444-454) read at an un-advanced head `w0` from a ring
+    holding only the given block spans (bypassed stages never ran their
+    synthesis).  The outputSeek pre-roll cancellation (:198-203) lives at
+    ring [L, 2L) and is included where the window overlaps it."""
+    buf = blocks_t.new_zeros(blocks_t.shape[:2] + (2 * T,))
+    for k, a, b, off in spans:
+        buf[..., a - w0:b - w0] += blocks_t[:, :, k, off:off + (b - a)]
+    lo, hi = max(w0, L), min(w0 + 2 * T, 2 * L)
+    if lo < hi:   # -preroll[L-1-(j-L)] at ring position j
+        buf[..., lo - w0:hi - w0] -= preroll[..., 2 * L - hi:2 * L - lo].flip(-1)
+    t = buf / torch.as_tensor(weight, device=buf.device)
+    return t[..., :T] - t[..., T:].flip(-1)
+
+
+def synthesis_stage(out_specs: torch.Tensor, plan: ExactPlan,
+                    audio: torch.Tensor = None) -> torch.Tensor:
+    """Inverse FFT + overlap-add + WOLA-normalised assembly: out_specs
+    [batch, ch, nB, B] complex64 -> [batch, ch, out_samples].  With `audio`
+    given, the silence bypass (:240-278) selects, per clip, between the
+    normal assembly and passthrough/zeros with restricted-ring tails."""
+    cfg, sch = plan.cfg, plan.sched
+    blocks_t = stft.synthesize(out_specs, plan.basis)   # [batch, ch, nB, block]
+    ring = _overlap_add(blocks_t, plan.arrays["out_pos"], sch.ring_len,
+                        cfg.block_samples, cfg.interval_samples)
+    w = torch.as_tensor(plan.weight, device=ring.device)
+    L = sch.preroll_len
+    preroll = ring[..., :L] / w[:L]
+    # outputSeek: negate + reverse the pre-roll into the ring (:198-203)
+    ring[..., L:2 * L] -= preroll.flip(-1)
+
+    def read(a, n):
+        return ring[..., a:a + n] / w[a:a + n]
+
+    main = read(L, sch.main_out)
+    fz0 = L + sch.main_out
+    flush_zero = read(fz0, sch.flush_block_out)
+    head = fz0 + sch.flush_block_out
+    T = sch.tail_len
+    tail = read(head, T) - read(head + T, T).flip(-1)
+
+    sil = plan.silence
+    if audio is not None and sil is not None and sil.possible:
+        # total-energy scans (:231-238), per clip
+        def silent(start, length):
+            seg = audio[..., start:start + max(length, 0)]
+            return ((seg * seg).sum((1, 2)) < NOISE_FLOOR)[:, None, None]
+
+        pre_silent = silent(sch.seek_samples, sch.surplus)
+        main_silent = silent(sch.seek_length, sch.main_in)
+        no = torch.zeros_like(main_silent)
+        main_b = (main_silent & pre_silent) if sil.main_possible else no
+        fp, fa = sil.flush_possible_pre, sil.flush_possible_alone
+        if fp == fa:
+            flush_b = main_silent & fp
+        else:   # only reachable when the pre-roll was silent too (fp, not fa)
+            flush_b = main_silent & pre_silent & fp
+        if sil.pass_idx is not None:
+            passthrough = audio[..., torch.as_tensor(sil.pass_idx.astype(np.int64),
+                                                     device=audio.device)]
+        else:
+            passthrough = torch.zeros_like(main)
+        main = torch.where(main_b, passthrough, main)
+        if sch.flush_block_out > 0:
+            flush_zero = torch.where(flush_b, torch.zeros_like(flush_zero),
+                                     flush_zero)
+            tail_pm = _bypass_tail(blocks_t, sil.pm_spans, sil.pm_weight,
+                                   L + sch.main_out, T, L, preroll)
+            tail = torch.where(flush_b, tail_pm, tail)
+        if sil.main_possible and T > 0:
+            tail_pre = _bypass_tail(blocks_t, sil.pre_spans, sil.pre_weight,
+                                    L, T, L, preroll)
+            tail = torch.where(main_b, tail_pre, tail)
+    return torch.cat([main, flush_zero, tail], -1)
+
+
+def render_exact(audio: torch.Tensor, plan: ExactPlan,
+                 controls: spectral.Controls, flags: spectral.SpectralFlags,
+                 plain: bool = False) -> torch.Tensor:
+    """audio [batch, ch, in_samples] float32 -> [batch, ch, out_samples].
+    plain=True runs the plain PyTorch versions of the kernels."""
+    if not plan.sched.valid:
+        return audio.new_zeros(audio.shape[:2] + (plan.sched.out_samples,))
+    spectra, prev_spectra = analyze_stage(audio, plan)
+    out_specs = spectral_stage(spectra, prev_spectra, plan, controls, flags,
+                               plain)
+    return synthesis_stage(out_specs, plan, audio=audio)

@@ -1,0 +1,111 @@
+"""Build the hand-written CUDA kernels of csrc/ and bind them with ctypes.
+
+Each `csrc/<name>.cu` compiles on its own with nvcc into a shared library
+with a plain C interface under `build/torch_kernels/` at the root of the
+checkout; the file name carries a hash of the source and the flags, so an
+edited kernel is rebuilt and an unchanged one is reused.  Nothing is
+compiled when a module is imported: the first wrapper call on a CUDA tensor
+(or an explicit `build()`) does it.
+
+Flags: sm_90a (Hopper), -O3, and --fmad=false so that `a*b + c` rounds twice
+exactly as the plain PyTorch versions do (IEEE division and square root are
+nvcc's default; no fast math).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+# each source's C entry point and its argument types; every entry point
+# returns the cudaError_t of its launch
+_P, _I = ctypes.c_void_p, ctypes.c_int
+ENTRY = {
+    "interp": ("sst_interp_multi", [_P] * 4 + [_I] * 6 + [_P]),
+    "sweep": ("sst_sweep", [_P] * 5 + [_I] * 5 + [_P]),
+    "scan": ("sst_iir", [_P] * 4 + [_I, _I, ctypes.c_float, _I, _P]),
+}
+SOURCES = tuple(ENTRY)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_entries: dict = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+            "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME)")
+
+
+def _target(name: str):
+    src = CSRC / f"{name}.cu"
+    key = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}-{key.hexdigest()[:12]}.so"
+
+
+def build(names=SOURCES) -> dict:
+    """Compile every named kernel source that is not built yet, one nvcc
+    process per source, all started together.  Returns {name: (seconds,
+    ptxas report)} for the sources compiled by this call."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = {}
+    for name in names:
+        src, so = _target(name)
+        if so.exists():
+            continue
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True),
+                         tmp, so, time.perf_counter())
+    report, failed = {}, []
+    for name, (proc, tmp, so, t0) in running.items():   # wait for every one
+        log, _ = proc.communicate()
+        if proc.returncode:
+            failed.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
+            continue
+        os.replace(tmp, so)
+        report[name] = (time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return report
+
+
+def entry(name: str):
+    """The C entry point of csrc/<name>.cu, built and loaded on first use."""
+    if name not in _entries:
+        build([name])
+        symbol, argtypes = ENTRY[name]
+        fn = getattr(ctypes.CDLL(str(_target(name)[1])), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _entries[name] = fn
+    return _entries[name]
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a C entry point."""
+    if rc:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def require_cuda(*tensors) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one card."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"kernel inputs must share one CUDA device, got "
+                             f"{t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")

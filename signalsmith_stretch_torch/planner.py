@@ -1,0 +1,203 @@
+"""Batched spectral planner: stages a-f of processSpectrum for all blocks.
+
+Builds the per-(block, bin) SweepInputs (reference signalsmith-stretch.h:
+642-803) that the diagonal sweep (wavefront.py) consumes, for every clip of
+a batch at once, in complex64:
+
+  - effective input / prevInput chains over the static block schedule
+    (:332-376, 806-812), with the fixed-rate shortcuts (every block new,
+    every block re-analysed) and the general gathers;
+  - for frequency-mapped renders: cross-channel energy, the slew smoothing
+    (kernel C), peaks and the output map, and the prediction lookups at the
+    mapped positions in one multi-set interpolation (kernel A);
+  - the prediction energies, the c1 chain coefficient and the four vote
+    coefficients a1, a2, d1, d2 of the main prediction (:722-803).
+
+Formants and the randomised >2x stretch regime are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import spectral
+from .config import MAX_CLEAN_STRETCH, NOISE_FLOOR
+from .ops import interp, scan_ops
+
+f32 = np.float32
+
+
+class SweepInputs(NamedTuple):
+    """Per-(block, bin) sweep inputs of a batch, each [batch, nB, B]."""
+    a1: torch.Tensor      # complex64 up-short vote coefficient
+    a2: torch.Tensor      # complex64 up-long
+    d1: torch.Tensor      # complex64 down-short
+    d2: torch.Tensor      # complex64 down-long
+    mc: torch.Tensor      # int32 max-energy channel
+    pe: tuple             # ch x f32 prediction energies
+    pi: tuple             # ch x complex64 prediction inputs
+
+
+def _sel(mc, items):
+    out = torch.zeros_like(items[0])
+    for c, it in enumerate(items):
+        out = torch.where(mc == c, it, out)
+    return out
+
+
+def _cmulc(a, b):
+    """a * conj(b)."""
+    return a * torch.conj(b)
+
+
+def _cdivr(a, den):
+    """complex / real, component-wise (what XLA's complex division gives for
+    a zero imaginary divisor; torch's complex division rounds differently)."""
+    return torch.complex(a.real / den, a.imag / den)
+
+
+def _shift_up(x, n):
+    """x[..., b] -> x[..., b+n] (zeros beyond the end)."""
+    return F.pad(x[..., n:], (0, n))
+
+
+def _where0(cond, x):
+    return torch.where(cond, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
+                  arrays: dict, controls: spectral.Controls,
+                  flags: spectral.SpectralFlags,
+                  consts: spectral.SpectralConsts, plain: bool = False,
+                  debug: bool = False):
+    """spectra/prev_spectra [batch, nB, ch, B] complex64; arrays = the
+    schedule's numpy flags.  Returns SweepInputs, or (SweepInputs, dict of
+    intermediates) with debug=True.  plain=True runs the plain PyTorch
+    versions of the kernels on any device (for comparisons)."""
+    batch, nB, ch, B = spectra.shape
+    dev = spectra.device
+    longv = consts.long_vertical_step
+    new = arrays["new_spectrum"]
+    reanalyse = arrays["reanalyse"]
+    tf = np.maximum(arrays["time_factor"], f32(1.0 / MAX_CLEAN_STRETCH))
+    if (tf > f32(MAX_CLEAN_STRETCH)).any():
+        raise NotImplementedError("stretches above 2x (randomised phases) "
+                                  "are not ported yet")
+    dbg = {}
+    rotor = torch.as_tensor(consts.rotor, device=dev)
+
+    def blocks(z, idx):
+        return z[:, torch.as_tensor(idx, device=dev)]
+
+    def bmask(keep):
+        return torch.as_tensor(keep, device=dev)[None, :, None, None]
+
+    # ---- static input/prevInput chains (:332-376, 806-812) ----------------
+    idx = np.arange(nB)
+    src_input = np.maximum.accumulate(np.where(new, idx, -1))
+    m_prev = np.concatenate([[-1], src_input[:-1]])   # last new block < k
+    if (src_input == idx).all():
+        input_eff = spectra
+    else:
+        input_eff = _where0(bmask(src_input >= 0),
+                            blocks(spectra, np.maximum(src_input, 0)))
+    if reanalyse.all():
+        prev_base = prev_spectra
+    else:
+        base_idx = np.where(new & ~reanalyse, np.maximum(m_prev, 0),
+                            np.maximum(src_input, 0))
+        base_valid = np.where(new & ~reanalyse, m_prev >= 0, src_input >= 0)
+        prev_base = torch.where(bmask(reanalyse), prev_spectra,
+                                blocks(spectra, base_idx))
+        prev_base = _where0(bmask(base_valid | reanalyse), prev_base)
+    if new.all():
+        prev_eff = prev_base * rotor
+    else:
+        prev_eff = torch.where(bmask(new), prev_base * rotor, prev_base)
+
+    in_energy = (input_eff.real * input_eff.real
+                 + input_eff.imag * input_eff.imag)         # [batch, nB, ch, B]
+    ltf = (f32(longv) * tf).astype(f32)
+
+    if flags.mapped:
+        # ---- smoothing + peaks + output map (:816-917) --------------------
+        R = batch * nB
+        energy = in_energy[:, :, 0]
+        for c in range(1, ch):
+            energy = energy + in_energy[:, :, c]
+        energy = energy.reshape(R, B).contiguous()
+        iir = scan_ops.iir_plain if plain else scan_ops.iir   # kernel C
+        sm = energy
+        e = torch.zeros(R, dtype=torch.float32, device=dev)
+        for _ in range(2):       # each step a down then an up pass
+            sm, e = iir(sm, e, consts.slew, backward=True)
+            sm, e = iir(sm, e, consts.slew)
+        input_bin, freq_grad = spectral._peaks_and_map(energy, sm, controls,
+                                                       consts)
+        # ---- prediction lookups at the mapped positions (:697-719) --------
+        # one multi-set call (kernel A): the prelim lookups of input,
+        # prevInput and energy at input_bin, and the vote taps of the input
+        # at input_bin - tf and input_bin - longv*tf (:744-786)
+        def rows(z):
+            return z.reshape(R, B)
+
+        t1 = torch.as_tensor(tf, device=dev).repeat(batch)[:, None]
+        t2 = torch.as_tensor(ltf, device=dev).repeat(batch)[:, None]
+        rows_list = ([rows(input_eff[:, :, c]) for c in range(ch)]
+                     + [rows(prev_eff[:, :, c]) for c in range(ch)]
+                     + [rows(in_energy[:, :, c]) for c in range(ch)])
+        specs = [(input_bin, 3 * ch), (input_bin - t1, ch),
+                 (input_bin - t2, ch)]
+        planes, pos_sets, kinds = interp.pack(rows_list, specs)
+        run = interp.interp_multi_plain if plain else interp.interp_multi
+        results, _ = run(planes, pos_sets)
+        vals, sd, ld = [[v.reshape(batch, nB, B) for v in o]
+                        for o in interp.unpack(results, specs, kinds)]
+        pos_grad = torch.clamp(freq_grad.reshape(batch, nB, B), min=0)
+        pi = vals[:ch]
+        prev_i = vals[ch:2 * ch]
+        pe = [v * pos_grad for v in vals[2 * ch:]]
+        if debug:
+            dbg.update(energy=energy, smoothed=sm, input_bin=input_bin,
+                       freq_grad=freq_grad, interp=(planes, pos_sets))
+    else:
+        pe = [in_energy[:, :, c] for c in range(ch)]
+        pi = [input_eff[:, :, c] for c in range(ch)]
+        prev_i = [prev_eff[:, :, c] for c in range(ch)]
+        sd = [interp._interp_shift_static(p, tf) for p in pi]
+        ld = [interp._interp_shift_static(p, ltf) for p in pi]
+
+    pe_prev = [F.pad(x[:, :-1], (0, 0, 1, 0)) for x in pe]
+    if new.all():
+        rotor_eff = rotor
+    else:
+        rotor_eff = torch.where(torch.as_tensor(new, device=dev)[:, None],
+                                rotor, torch.ones((), dtype=rotor.dtype,
+                                                  device=dev))   # [nB, B]
+    c1 = [_cdivr(rotor_eff * _cmulc(pi[c], prev_i[c]),
+                 torch.maximum(pe_prev[c], pe[c]) + NOISE_FLOOR)
+          for c in range(ch)]
+
+    # ---- main-prediction coefficients (:722-803) --------------------------
+    mc = torch.argmax(torch.stack(pe, 0), 0).to(torch.int32)
+    pi_max = _sel(mc, pi)
+    b_idx = torch.arange(B, device=dev)
+    # both vote branches use the same binTimeFactor, so the up positions
+    # are the down positions shifted one (or longv) bins up (:764-786)
+    d1 = _where0(b_idx > 0, _cmulc(pi_max, _sel(mc, sd)))
+    d2 = _where0(b_idx >= longv, _cmulc(pi_max, _sel(mc, ld)))
+    up_short = _sel(mc, [_shift_up(x, 1) for x in sd])
+    up_long = _sel(mc, [_shift_up(x, longv) for x in ld])
+    pi_up1 = _sel(mc, [_shift_up(x, 1) for x in pi])
+    pi_upl = _sel(mc, [_shift_up(x, longv) for x in pi])
+    c1_up1 = _sel(mc, [_shift_up(x, 1) for x in c1])
+    c1_upl = _sel(mc, [_shift_up(x, longv) for x in c1])
+    a1 = _where0(b_idx < B - 1, _cmulc(c1_up1, _cmulc(pi_up1, up_short)))
+    a2 = _where0(b_idx < B - longv, _cmulc(c1_upl, _cmulc(pi_upl, up_long)))
+
+    result = SweepInputs(a1=a1, a2=a2, d1=d1, d2=d2, mc=mc,
+                         pe=tuple(pe), pi=tuple(pi))
+    return (result, dbg) if debug else result

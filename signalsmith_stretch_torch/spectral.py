@@ -1,0 +1,194 @@
+"""Spectral constants, controls and the peaks / output-map stage.
+
+The per-(block, bin) parts of processSpectrum that the planner needs
+(signalsmith-stretch.h:633-917): the incremental phase rotor, the frequency
+map with its tonality limit, and the peak finder + output map, batched over
+block rows.  All arithmetic is float32 to track the reference's
+`Sample=float` numerics.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .config import StretchConfig
+
+f32 = np.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class SpectralConsts:
+    bands: int
+    channels: int
+    fft_samples: int
+    interval: int
+    long_vertical_step: int       # round(fftSamples/interval) (:637)
+    smoothing_bins: float         # float32 fftSamples/interval (:636)
+    slew: float                   # 1/(1 + smoothingBins*0.5) (:819)
+    rotor: np.ndarray             # [bands] complex64 incremental rotor values
+    band_freq: np.ndarray         # [bands] float32 binToFreq(b)
+
+    @classmethod
+    def for_config(cls, cfg: StretchConfig) -> "SpectralConsts":
+        B, N, H = cfg.bands, cfg.fft_samples, cfg.interval_samples
+        band_freq = ((np.arange(B, dtype=f32) + f32(0.5)) / f32(N)).astype(f32)
+        # incremental rotor exactly as the reference builds it (:647-655):
+        # float32 complex multiplies accumulate the same drift
+        angle0 = f32(f32(band_freq[0]) * f32(H) * f32(2 * math.pi))
+        freq_step = f32(band_freq[1] - band_freq[0])
+        angle_step = f32(f32(freq_step) * f32(H) * f32(2 * math.pi))
+        rot = np.complex64(complex(f32(np.cos(np.float64(angle0))),
+                                   f32(np.sin(np.float64(angle0)))))
+        rot_step = np.complex64(complex(f32(np.cos(np.float64(angle_step))),
+                                        f32(np.sin(np.float64(angle_step)))))
+        rotor = np.empty(B, np.complex64)
+        for b in range(B):
+            rotor[b] = rot
+            re = f32(f32(rot.real * rot_step.real) - f32(rot.imag * rot_step.imag))
+            im = f32(f32(rot.real * rot_step.imag) + f32(rot.imag * rot_step.real))
+            rot = np.complex64(complex(re, im))
+        smoothing_bins = float(f32(N) / f32(H))
+        slew = float(f32(1) / f32(f32(1) + f32(smoothing_bins) * f32(0.5)))
+        return cls(bands=B, channels=cfg.channels, fft_samples=N, interval=H,
+                   long_vertical_step=cfg.long_vertical_step,
+                   smoothing_bins=smoothing_bins, slew=slew,
+                   rotor=rotor, band_freq=band_freq)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpectralFlags:
+    """Static branch structure (the reference's bools)."""
+    mapped: bool                  # freqMultiplier != 1 (:300)
+
+
+class Controls(NamedTuple):
+    """Control scalars, numpy float32 (so host arithmetic rounds to f32)."""
+    freq_multiplier: np.float32
+    freq_tonality_limit: np.float32
+
+    @classmethod
+    def make(cls, freq_multiplier=1.0, freq_tonality_limit=1.0):
+        return cls(f32(freq_multiplier), f32(freq_tonality_limit))
+
+
+# ---------------------------------------------------------------------------
+# Frequency maps (signalsmith-stretch.h:850-856)
+# ---------------------------------------------------------------------------
+def map_freq(freq: torch.Tensor, controls: Controls) -> torch.Tensor:
+    limit = f32(controls.freq_tonality_limit)
+    mult = f32(controls.freq_multiplier)
+    above = freq + float(f32(f32(mult - f32(1)) * limit))
+    return torch.where(freq > float(limit), above, freq * float(mult))
+
+
+def _freq_to_band(freq, consts: SpectralConsts):
+    return freq * float(consts.fft_samples) - 0.5
+
+
+def _band_to_freq(band, consts: SpectralConsts):
+    return (band + 0.5) / float(consts.fft_samples)
+
+
+def _gather_band(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """rows [..., W], idx int [..., B] -> values, zero outside [0, W)."""
+    W = rows.shape[-1]
+    valid = (idx >= 0) & (idx < W)
+    v = torch.gather(rows, -1, idx.clamp(0, W - 1))
+    return torch.where(valid, v, torch.zeros((), dtype=rows.dtype,
+                                             device=rows.device))
+
+
+def _segment_sums(index: torch.Tensor, values: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """Sum values into n slots.  Deterministic accumulation: bin-ascending
+    on the CPU (the order of the reference's `+=`), a sorted, run-to-run
+    reproducible order on the card (atomics would flip low bits between
+    renders, which the chaotic phase recursion amplifies)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = torch.zeros(n, dtype=values.dtype, device=values.device)
+        return out.index_put_((index,), values, accumulate=True)
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+# ---------------------------------------------------------------------------
+# Peaks + output map (signalsmith-stretch.h:859-917), batched over rows
+# ---------------------------------------------------------------------------
+def _peaks_and_map(energy: torch.Tensor, smoothed: torch.Tensor,
+                   controls: Controls, consts: SpectralConsts):
+    """energy, smoothed [R, B] f32 -> (input_bin, freq_grad) [R, B]."""
+    R, B = energy.shape
+    dev = energy.device
+    nseg = B // 2 + 2
+    above = energy > smoothed
+    start = above & ~F.pad(above[:, :-1], (1, 0), value=False)
+    run_id = torch.cumsum(start.to(torch.int64), 1) - 1
+    seg = torch.where(above, run_id, nseg - 1)
+    b_idx = torch.arange(B, dtype=torch.float32, device=dev)
+    flat = (torch.arange(R, device=dev)[:, None] * nseg + seg).reshape(-1)
+    band_sum = _segment_sums(flat, (b_idx * energy).reshape(-1),
+                             R * nseg).reshape(R, nseg)
+    energy_sum = _segment_sums(flat, energy.reshape(-1),
+                               R * nseg).reshape(R, nseg)
+    n_peaks = start.sum(1)
+
+    valid = torch.arange(nseg, device=dev)[None, :] < n_peaks[:, None]
+    avg_band = band_sum / torch.where(energy_sum == 0,
+                                      torch.ones_like(energy_sum), energy_sum)
+    peak_in = torch.where(valid, avg_band, torch.zeros_like(avg_band))
+    avg_freq = _band_to_freq(avg_band, consts)
+    peak_out_raw = _freq_to_band(map_freq(avg_freq, controls), consts)
+    peak_out = torch.where(valid, peak_out_raw,
+                           torch.full_like(peak_out_raw, math.inf))
+
+    # updateOutputMap: k[b] = #peaks with output <= b, as a histogram of
+    # ceil(output) and its inclusive prefix sum
+    cells = torch.where(valid, torch.ceil(peak_out).clamp(0, B).to(torch.int64),
+                        torch.full((R, nseg), B, device=dev))
+    hist = torch.zeros(R, B + 1, dtype=torch.int64, device=dev)
+    hist.scatter_add_(1, cells, torch.ones_like(cells))
+    k = torch.cumsum(hist[:, :B], 1)
+    last = (n_peaks - 1).clamp(min=0)[:, None]
+    first_in, first_out = peak_in[:, :1], peak_out[:, :1]
+    last_in = torch.gather(peak_in, 1, last)
+    last_out = torch.where(torch.gather(valid, 1, last),
+                           torch.gather(peak_out, 1, last),
+                           torch.zeros_like(last_in))
+    prev_i = (k - 1).clamp(0, nseg - 1)
+    next_i = k.clamp(0, nseg - 1)
+    prev_o = torch.gather(peak_out, 1, prev_i)
+    prev_in = torch.gather(peak_in, 1, prev_i)
+    next_o = torch.gather(peak_out, 1, next_i)
+    next_in = torch.gather(peak_in, 1, next_i)
+
+    range_scale = 1 / (next_o - prev_o)
+    out_offset = prev_in - prev_o
+    out_scale = next_in - next_o - prev_in + prev_o
+    grad_scale = out_scale * range_scale
+    r = (b_idx - prev_o) * range_scale
+    h = r * r * (3 - 2 * r)
+    pair_bin = b_idx + out_offset + h * out_scale
+    pair_grad = 1 + (6 * r * (1 - r)) * grad_scale
+
+    # the top rule runs last in C++ and overwrites from trunc(last.output)
+    top_start = last_out.to(torch.int32).clamp(min=0)
+    is_top = torch.arange(B, device=dev)[None, :] >= top_start
+    is_bottom = (k == 0) & ~is_top
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    input_bin = torch.where(is_top, b_idx + (last_in - last_out),
+                            torch.where(is_bottom,
+                                        b_idx + (first_in - first_out),
+                                        pair_bin))
+    freq_grad = torch.where(is_top | is_bottom, one, pair_grad)
+
+    no_peaks = (n_peaks == 0)[:, None]
+    input_bin = torch.where(no_peaks, b_idx.expand(R, B), input_bin)
+    freq_grad = torch.where(no_peaks, one, freq_grad)
+    return input_bin, freq_grad

@@ -1,0 +1,131 @@
+"""The port's spectral planner against the JAX package's, on the CPU.
+
+The same spectra (the JAX analysis of the 8 kHz stereo fixture) go through
+JAX `plan_spectral` (complex mode, run op by op, gather interpolation as on
+the CPU) and the port's `plan_spectral`; the SweepInputs are compared leaf
+by leaf, unmapped and mapped (+12 semitones with a tonality limit), on the
+fixed-rate schedules and on one whose blocks are mostly not re-analysed.
+
+Tolerance: reassociation.  Every leaf within 1e-6 of its largest magnitude:
+torch and XLA round a complex product's real and imaginary parts in
+different orders (the vote coefficients measure up to 3e-7); the energies,
+prediction inputs and the max-channel choice measure bit-equal.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from signalsmith_stretch_torch import planner  # noqa: E402
+from signalsmith_stretch_torch.models import StretchModel  # noqa: E402
+from signalsmith_stretch_tpu import engine as jengine  # noqa: E402
+from signalsmith_stretch_tpu import planner as jplanner  # noqa: E402
+from signalsmith_stretch_tpu.models import StretchModel as JModel  # noqa: E402
+
+RTOL = 1e-6
+# (time ratio, semitones, tonality limit in Hz)
+CASES = {
+    "1.0": (1.0, 0, 0),
+    "1.25": (1.25, 0, 0),
+    "0.8": (0.8, 0, 0),
+    "1.004": (1.004, 0, 0),
+    "pitch+12_1.0": (1.0, 12, 2000),
+    "pitch+12_1.25": (1.25, 12, 2000),
+    "pitch+12_1.004": (1.004, 12, 2000),
+    "pitch-5_1.0": (1.0, -5, 0),
+}
+
+
+def _models(sig, rate, case):
+    ratio, semis, ton = CASES[case]
+    n = sig.shape[1]
+    out = int(round(n * ratio))
+    kw = dict(semitones=semis, tonality_hz=ton)
+    return (StretchModel.build(2, rate, n, out, device="cpu", **kw),
+            JModel.build(2, rate, n, out, **kw))
+
+
+def _leaves(inp, batch_index=None):
+    """SweepInputs -> {name: numpy}."""
+    def f(x):
+        x = x[batch_index] if batch_index is not None else x
+        return np.asarray(x)
+    d = {k: f(getattr(inp, k)) for k in ("a1", "a2", "d1", "d2", "mc")}
+    for c in range(len(inp.pe)):
+        d[f"pe{c}"] = f(inp.pe[c])
+        d[f"pi{c}"] = f(inp.pi[c])
+    return d
+
+
+def _close(got, ref, name):
+    assert got.shape == ref.shape, name
+    if np.iscomplexobj(ref):
+        got = np.stack([got.real, got.imag])
+        ref = np.stack([ref.real, ref.imag])
+    scale = np.abs(ref).max()
+    err = np.abs(got.astype(np.float64) - ref).max()
+    assert err <= RTOL * scale, (name, err, scale)
+
+
+def _plan_both(sig, rate, case, debug=False):
+    model, jm = _models(sig, rate, case)
+    js, jp = jengine.analyze_stage(jnp.asarray(sig), jm.plan)
+    ref = jplanner.plan_spectral(js, jp, jm.plan.arrays, jm.controls,
+                                 jm.flags, jm.plan.consts, 0, debug=debug)
+    got = planner.plan_spectral(
+        torch.as_tensor(np.array(js))[None], torch.as_tensor(np.array(jp))[None],
+        model.plan.arrays, model.controls, model.flags, model.plan.consts,
+        debug=debug)
+    return got, ref, model
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sweep_inputs_match_jax(stereo_signal, case):
+    sig, rate = stereo_signal
+    got, ref, model = _plan_both(sig, rate, case)
+    assert model.flags.mapped == (CASES[case][1] != 0)
+    g, r = _leaves(got, 0), _leaves(ref)
+    assert g.keys() == r.keys()
+    np.testing.assert_array_equal(g["mc"], r["mc"])
+    for k in g:
+        if k != "mc":
+            assert g[k].dtype == r[k].dtype, k
+            _close(g[k], r[k], k)
+
+
+@pytest.mark.parametrize("case", ["pitch+12_1.0", "pitch+12_1.25"])
+def test_mapped_intermediates_match_jax(stereo_signal, case):
+    """Energy, its slew smoothing (kernel C's plain version), and the peaks
+    and output map: the prediction positions and their gradients."""
+    sig, rate = stereo_signal
+    (_, dbg), (_, jdbg), _ = _plan_both(sig, rate, case, debug=True)
+    for k in ("energy", "smoothed", "input_bin", "freq_grad"):
+        got = dbg[k].numpy().reshape(np.shape(jdbg[k]))
+        _close(got, np.asarray(jdbg[k]), k)
+
+
+def test_planner_is_per_clip(stereo_signal):
+    """A batch of two clips plans as each clip alone, bit for bit (the
+    mapped path's segment sums included)."""
+    sig, rate = stereo_signal
+    model, _ = _models(sig, rate, "pitch+12_1.25")
+    from signalsmith_stretch_torch import engine
+    clips = torch.as_tensor(np.stack([sig, sig[:, ::-1] * 0.7]))
+    spectra, prev = engine.analyze_stage(clips, model.plan)
+    args = (model.plan.arrays, model.controls, model.flags, model.plan.consts)
+    both = _leaves(planner.plan_spectral(spectra, prev, *args))
+    for i in range(2):
+        one = _leaves(planner.plan_spectral(spectra[i:i + 1], prev[i:i + 1],
+                                            *args), 0)
+        for k in one:
+            np.testing.assert_array_equal(both[k][i], one[k], err_msg=k)
+
+
+def test_above_twice_stretch_is_not_ported(stereo_signal):
+    sig, rate = stereo_signal
+    n = sig.shape[1]
+    model = StretchModel.build(2, rate, n, 3 * n, device="cpu")
+    with pytest.raises(NotImplementedError):
+        model.batched(sig[None])
