@@ -9,14 +9,22 @@ Phases, in order; any failure exits non-zero before the last line:
   1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: every kernel source of csrc/ with nvcc, one process each;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it (the pitch+12 configuration at batch
-     8 x 10 s stereo 48 kHz): the interp kernel (A) in lerp and taps mode,
-     the slew scan (C) forward and backward, the diagonal sweep (B);
-  4. renders of stereo48k_default_1.25x and stereo48k_pitch+12_tonality8k at
-     batch 8 x 10 s stereo 48 kHz through StretchModel.batched, with the
-     launch counters, finiteness, shape, run-to-run bit identity and a
-     batch-1 render through the kernels against the same render through the
-     plain versions;
+     shapes the main path gives it (batch 8 x 10 s stereo 48 kHz): the
+     analysis DFT (D) on the 1.25x render's frames, within 3e-6 of the
+     spectrum's peak of the plain analysis (cuFFT); on the pitch+12
+     configuration's planner inputs the interp kernel (A) in lerp and taps
+     mode, the slew scan (C) forward and backward and the diagonal sweep
+     (B); on the auto-base formant configuration's metric the decay scans
+     (E) and the top-3 scan (F); every kernel but D bit-equal;
+  4. renders of stereo48k_default_1.25x, stereo48k_pitch+12_tonality8k,
+     formant_vocal_shift (base 220 Hz) and formant_vocal_shift_auto (base
+     estimated per block) at batch 8 x 10 s stereo 48 kHz through
+     StretchModel.batched, with each configuration's launch counts,
+     finiteness, shape, run-to-run bit identity, and a batch-1 clip through
+     the kernels against the same clip through the plain versions: the
+     spectral stage (A, B, C, E, F) on the spectra of one analysis through
+     D bit-equal, and the whole render bit-equal, else within the
+     chaos-relative gate (D rounds otherwise than cuFFT);
   5. the kernel table as one JSON line, the nvidia-smi line, and the device
      line {"ok": true, "device": {...}} last.
 
@@ -39,12 +47,16 @@ sys.path.insert(0, ROOT)
 RATE = 48000
 SECONDS = 10.0
 BATCH = 8
+FORMANT = dict(semitones=5, tonality_hz=8000, formant_semitones=3,
+               formant_compensation=True)
 CONFIGS = (
     ("stereo48k_default_1.25x", 1.25, {}),
     ("stereo48k_pitch+12_tonality8k", 1.0, dict(semitones=12,
                                                 tonality_hz=8000)),
+    ("formant_vocal_shift", 1.0, dict(FORMANT, formant_base_hz=220)),
+    ("formant_vocal_shift_auto", 1.0, dict(FORMANT, formant_base_hz=0)),
 )
-MAPPED = CONFIGS[1]
+STRETCH, MAPPED, _, FORMANT_AUTO = CONFIGS
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 flop/s
 # outside the tensor cores
@@ -63,7 +75,14 @@ KERNELS = (
      "signalsmith_stretch_tpu/wavefront.py:169"),
     ("iir", "signalsmith_stretch_torch/csrc/scan.cu",
      "signalsmith_stretch_tpu/ops/scan_ops.py:60"),
+    ("dft", "signalsmith_stretch_torch/csrc/dft.cu",
+     "tools/exp_pallas_dft.py:81"),
+    ("decay", "signalsmith_stretch_torch/csrc/decay.cu",
+     "signalsmith_stretch_tpu/ops/scan_ops.py:95"),
+    ("top3", "signalsmith_stretch_torch/csrc/top3.cu",
+     "signalsmith_stretch_tpu/spectral.py:325"),
 )
+DFT_TOL = 3e-6        # of the spectrum's peak magnitude (tests/test_stft.py)
 
 
 def make_corpus(batch, channels, in_len, rate, seed=0):
@@ -249,10 +268,15 @@ def check_kernels():
     # --- B: the diagonal sweep --------------------------------------------
     longv = plan.consts.long_vertical_step
     got = wavefront.sweep(inputs, longv)
-    t0 = time.perf_counter()
-    ref = wavefront.sweep_plain(inputs, longv)
+    # the plain sweep takes seconds: its time is the one comparison run,
+    # between CUDA events like the other rows' (a median of one)
     torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    ref = wavefront.sweep_plain(inputs, longv)
+    t1.record()
+    t1.synchronize()
+    plain = t0.elapsed_time(t1)
     err = max_abs(got, ref)
     batch_, nB, Bs = inputs.a1.shape
     ch = len(inputs.pi)
@@ -275,10 +299,8 @@ def check_kernels():
                 f"within 12 dB of its 1-ulp sensitivity {sens:.1f} dB")
     print(f"B sweep: [batch {batch_}, nB {nB}, B {Bs}], ch {ch}, LV {longv}, "
           f"D {Bs + (nB - 1) * (longv + 1)} diagonals: {gate} "
-          f"(plain sweep {plain_s:.1f} s)")
+          f"(plain sweep {plain / 1e3:.1f} s)")
     ms = cuda_ms(lambda: wavefront.sweep(inputs, longv), KERNEL_REPS // 4)
-    plain = cuda_ms(lambda: wavefront.sweep_plain(inputs, longv),
-                    PLAIN_REPS, warm=0)
     cells = batch_ * nB * Bs
     # per cell: a1, a2, d1, d2 (complex), mc, pe and pi per channel in, the
     # outputs per channel out; ~62 flops for two channels
@@ -286,27 +308,177 @@ def check_kernels():
     flops = cells * (30 + 16 * ch)
     entries["sweep"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                             bound=bound_ms(nbytes, flops))
+    del inputs, dbg, spectra, prev, audio
+    torch.cuda.empty_cache()
+    entries["dft"] = check_dft()
+    entries.update(check_formant_scans())
     for name, e in entries.items():
+        lib = e.get("library_ms")
         print(f"{name}: max abs difference {e['max_abs_err']:g}, kernel "
               f"{e['ms']:.3f} ms, plain {e['plain_ms']:.1f} ms, bound "
-              f"{e['bound'][0]:.4f} ms ({e['bound'][1]}), library: none (no "
-              f"single PyTorch call computes it)")
-    del inputs, dbg, spectra, prev, audio
+              f"{e['bound'][0]:.4f} ms ({e['bound'][1]}), library: "
+              + (f"{lib:.3f} ms" if lib is not None else
+                 "none (no single PyTorch call computes it)"))
+    return entries
+
+
+def analysis_frames(cfg):
+    """The main and re-analysis frames one render of cfg analyses, as one
+    contiguous [frames, block] tensor on the card, and the STFT basis."""
+    import torch
+    from signalsmith_stretch_torch import engine
+    model, clips = _model(cfg, BATCH)
+    plan = model.plan
+    audio = torch.as_tensor(clips, device=DEVICE)
+    starts = np.concatenate([plan.frame_idx[:, 0], plan.re_frame_idx[:, 0]])
+    frames = engine.gather_frames(engine._build_timeline(audio, plan), starts,
+                                  plan.cfg.block_samples)
+    return frames.reshape(-1, plan.cfg.block_samples).contiguous(), plan.basis
+
+
+def check_dft():
+    """D against the plain analysis (cuFFT) on the 1.25x render's main and
+    re-analysis frames.  The library call is torch.fft.fft of the same
+    frames windowed, padded and twisted.  D is also timed on the 1.0x
+    renders' frames, for its cost per frame at two frame counts."""
+    import torch
+    import torch.nn.functional as F
+    from signalsmith_stretch_torch import stft
+    from signalsmith_stretch_torch.ops import dft
+
+    frames, basis = analysis_frames(MAPPED)
+    ms_1x = cuda_ms(lambda: dft.analyze(frames, basis), KERNEL_REPS)
+    nF_1x = frames.shape[0]
+    del frames
+    frames, basis = analysis_frames(STRETCH)
+    got = dft.analyze(frames, basis)
+    ref = stft.analyze_plain(frames, basis)
+    err = max_abs(got, ref)
+    peak = float(ref.abs().max())
+    if not err <= DFT_TOL * peak:
+        raise SystemExit(f"dft: kernel differs from the plain analysis by "
+                         f"{err:g}, {err / peak:.3g} of the peak {peak:g} "
+                         f"(tolerance {DFT_TOL:g})")
+    nF, block = frames.shape
+    print(f"D dft: frames [{nF}, {block}] -> [{nF}, {basis.bands}] complex64: "
+          f"max abs difference {err:g} = {err / peak:.3g} of the peak "
+          f"(tolerance {DFT_TOL:g})")
+    ms = cuda_ms(lambda: dft.analyze(frames, basis), KERNEL_REPS)
+    plain = cuda_ms(lambda: stft.analyze_plain(frames, basis), KERNEL_REPS)
+    z = F.pad(frames * torch.as_tensor(basis.window, device=DEVICE),
+              (0, basis.fft_samples - block)) * torch.as_tensor(
+                  basis.twist, device=DEVICE)
+    lib = cuda_ms(lambda: torch.fft.fft(z, dim=-1), KERNEL_REPS)
+    del z, got, ref, frames
+    torch.cuda.empty_cache()
+    # the function's operations: a real FFT of N points, 5/2 N log2 N flops
+    # (the window multiply is a rounding error beside it)
+    N = basis.fft_samples
+    flops = nF * 5 * N * (N.bit_length() - 1) // 2
+    nbytes = nF * (4 * block + 8 * basis.bands)
+    bound = bound_ms(nbytes, flops)
+    # the kernel's own algorithm, for comparison only: stage 1 (a real
+    # sample times a complex constant, accumulated: 4 flops) over
+    # N1 x N2 x n1u, the twiddle (6 flops) over N1 x N2, stage 2 (a complex
+    # multiply-accumulate: 8 flops) over N1 x K2 x N2
+    N1, N2 = stft._dft_mats(N)[:2]
+    n1u = -(-block // N2)
+    algo_flops = nF * (4 * N1 * N2 * n1u + 6 * N1 * N2
+                       + 8 * N1 * (N2 // 2) * N2)
+    print(f"D dft: {1e6 * ms / nF:.1f} ns a frame at {nF} frames (1.25x), "
+          f"{1e6 * ms_1x / nF_1x:.1f} ns a frame at {nF_1x} (1.0x, "
+          f"{ms_1x:.3f} ms); bound {bound[0]:.4f} ms ({bound[1]}: "
+          f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP as an FFT); the "
+          f"two-stage algorithm's own operation floor "
+          f"{1e3 * algo_flops / PEAK_F32:.3f} ms ({algo_flops / 1e9:.1f} "
+          f"GFLOP, {algo_flops / ms / 1e9:.1f} TFLOP/s achieved)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound=bound)
+
+
+def check_formant_scans():
+    """E (the four decay passes) and F (the top-3 scan) against their plain
+    loops, on the auto-base formant render's metric and decay."""
+    import torch
+    from signalsmith_stretch_torch import engine, planner, spectral
+    from signalsmith_stretch_torch.ops import scan_ops
+
+    model, clips = _model(FORMANT_AUTO, BATCH)
+    plan = model.plan
+    audio = torch.as_tensor(clips, device=DEVICE)
+    spectra, prev = engine.analyze_stage(audio, plan)
+    _, dbg = planner.plan_spectral(spectra, prev, plan.arrays, model.controls,
+                                   model.flags, plan.consts, debug=True)
+    del spectra, prev, audio
+    x = dbg["metric"]
+    R, B = x.shape
+    decay = 1 - 1 / (dbg["freq_estimate"] * 0.5 + 1)
+    init = torch.zeros(R, dtype=torch.float32, device=DEVICE)
+    err = 0.0
+    for is_min, coef in ((False, decay), (True, 1 / decay)):
+        for backward in (True, False):
+            y, fin = scan_ops.decay(x, init, coef, is_min, backward)
+            yp, finp = scan_ops.decay_plain(x, init, coef, is_min, backward)
+            err = max(err, max_abs(y, yp), max_abs(fin, finp))
+            what = (f"decay_{'min' if is_min else 'max'}_"
+                    f"{'backward' if backward else 'forward'}")
+            if not (torch.equal(y, yp) and torch.equal(fin, finp)):
+                raise SystemExit(f"{what}: kernel differs from the plain "
+                                 f"version, max abs {err}")
+            print(f"E {what}: {tuple(x.shape)}: bit-equal to the plain "
+                  f"version")
+    entries = {"decay": dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: scan_ops.decay(x, init, decay, False),
+                   KERNEL_REPS),
+        plain_ms=cuda_ms(lambda: scan_ops.decay_plain(x, init, decay, False),
+                         PLAIN_REPS),
+        bound=bound_ms(4 * (2 * R * B + 3 * R), 2 * R * B))}
+
+    got = scan_ops.top3_local_maxima(x)
+    ref = spectral._top3_local_maxima(x)
+    err = max(max_abs(g.float(), r.float()) for g, r in zip(got, ref))
+    if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+        raise SystemExit(f"top3: kernel differs from the plain version, max "
+                         f"abs {err}")
+    print(f"F top3: {tuple(x.shape)} -> 6 x [{R}]: bit-equal to the plain "
+          f"version")
+    entries["top3"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: scan_ops.top3_local_maxima(x), KERNEL_REPS),
+        plain_ms=cuda_ms(lambda: spectral._top3_local_maxima(x), PLAIN_REPS,
+                         warm=0),
+        bound=bound_ms(4 * (R * B + 6 * R), 6 * R * B))
+    del dbg, x
     torch.cuda.empty_cache()
     return entries
 
 
 def counters():
     from signalsmith_stretch_torch import wavefront
-    from signalsmith_stretch_torch.ops import interp, scan_ops
+    from signalsmith_stretch_torch.ops import dft, interp, scan_ops
     return {"interp_multi": interp.launches, "sweep": wavefront.launches,
-            "iir": scan_ops.launches}
+            "iir": scan_ops.launches, "dft": dft.launches,
+            "decay": scan_ops.decay_launches,
+            "top3": scan_ops.top3_launches}
 
 
 def reset_counters():
     from signalsmith_stretch_torch import wavefront
-    from signalsmith_stretch_torch.ops import interp, scan_ops
+    from signalsmith_stretch_torch.ops import dft, interp, scan_ops
     interp.launches = wavefront.launches = scan_ops.launches = 0
+    dft.launches = scan_ops.decay_launches = scan_ops.top3_launches = 0
+
+
+def expected_launches(flags):
+    """Kernel launches of one render: D and B always; A and four slew
+    passes (C) when mapped; eight decay passes (E) for formants; with the
+    base estimated, the top-3 scan (F) and the two freqEstimate chains over
+    blocks (C)."""
+    auto = flags.process_formants and flags.formant_auto
+    return {"interp_multi": int(flags.mapped), "sweep": 1,
+            "iir": 4 * flags.mapped + 2 * auto, "dft": 1,
+            "decay": 8 * flags.process_formants, "top3": int(auto)}
 
 
 def stage_split(model, audio):
@@ -330,6 +502,42 @@ def stage_split(model, audio):
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
+def render_vs_plain(model, audio):
+    """Clips through the kernels against the same clips through the plain
+    versions, both on the card, in two gates.  The spectral stage (A, B, C,
+    E and F) on the spectra of one analysis through D: bit-equal.  The
+    whole render, D included: bit-equal, or within 12 dB of the plain
+    render's own response to a 1-ulp change of its input with band
+    energies within 3 dB.  Returns (passed, description)."""
+    import torch
+    from signalsmith_stretch_torch import engine
+    plan = model.plan
+    spectra, prev = engine.analyze_stage(audio, plan)
+    k_specs, p_specs = (engine.spectral_stage(spectra, prev, plan,
+                                              model.controls, model.flags, p)
+                        for p in (False, True))
+    if not torch.equal(k_specs, p_specs):
+        return False, (f"spectral stage through the kernels differs from "
+                       f"the plain versions on the same spectra, max abs "
+                       f"{max_abs(k_specs, p_specs):g}")
+    del spectra, prev, k_specs, p_specs
+    k_out = model.batched(audio)
+    p_out = model.batched(audio, plain=True)
+    stage = "spectral stage bit-equal on D's spectra; render "
+    if torch.equal(k_out, p_out):
+        return True, stage + "bit-equal"
+    pert = torch.nextafter(audio, torch.full_like(audio, np.inf))
+    p2 = model.batched(pert, plain=True).cpu().numpy()
+    k, p = k_out.cpu().numpy(), p_out.cpu().numpy()
+    sens = rel_err_db(p2, p)
+    dev_db = rel_err_db(k, p)
+    band = np.abs(band_energy_db(k) - band_energy_db(p)).max()
+    ok = bool(np.isfinite(k).all()) and dev_db < sens + 12.0 and band <= 3.0
+    return ok, (stage + f"not bit-equal: {dev_db:.1f} dB from the plain "
+                f"render, 1-ulp sensitivity {sens:.1f} dB, band energies "
+                f"within {band:.2f} dB")
+
+
 def render_config(cfg):
     """Phase 4 for one configuration.  Returns the launch counts of the
     counted render."""
@@ -346,8 +554,7 @@ def render_config(cfg):
     torch.cuda.synchronize()
     counts = counters()
     peak = torch.cuda.max_memory_allocated()
-    want = ({"interp_multi": 1, "sweep": 1, "iir": 4} if model.flags.mapped
-            else {"interp_multi": 0, "sweep": 1, "iir": 0})
+    want = expected_launches(model.flags)
     if counts != want:
         raise SystemExit(f"{name}: kernel launches {counts}, expected {want}")
     shape = (BATCH, 2, model.out_samples)
@@ -367,27 +574,9 @@ def render_config(cfg):
     audio_s = BATCH * model.in_samples / RATE
     split = stage_split(model, audio)
 
-    # one clip through the kernels against the same clip through the plain
-    # versions, both on the card
-    one = audio[:1]
-    k_out = model.batched(one)
-    p_out = model.batched(one, plain=True)
-    if torch.equal(k_out, p_out):
-        gate = "bit-equal"
-    else:
-        pert = torch.nextafter(one, torch.full_like(one, np.inf))
-        p2 = model.batched(pert, plain=True).cpu().numpy()
-        k, p = k_out.cpu().numpy(), p_out.cpu().numpy()
-        sens = rel_err_db(p2, p)
-        dev_db = rel_err_db(k, p)
-        band = np.abs(band_energy_db(k) - band_energy_db(p)).max()
-        if not (dev_db < sens + 12.0 and band <= 3.0):
-            raise SystemExit(f"{name}: kernel render {dev_db:.1f} dB from "
-                             f"the plain render (1-ulp sensitivity "
-                             f"{sens:.1f} dB), band energies within "
-                             f"{band:.2f} dB")
-        gate = (f"not bit-equal: {dev_db:.1f} dB, 1-ulp sensitivity "
-                f"{sens:.1f} dB, band energies within {band:.2f} dB")
+    ok, gate = render_vs_plain(model, audio[:1])
+    if not ok:
+        raise SystemExit(f"{name}: {gate}")
     print(f"{name}: batch {BATCH} x {SECONDS:g} s stereo {RATE} Hz -> "
           f"{tuple(out.shape)}; render {secs * 1e3:.1f} ms (median of "
           f"{RENDER_REPS}, {[round(t * 1e3, 1) for t in times]}), realtime "
@@ -418,7 +607,8 @@ def main():
                           replaces=replaces, launches=launches[name],
                           max_abs_err=e["max_abs_err"], ms=e["ms"],
                           plain_ms=e["plain_ms"], bound_ms=e["bound"][0],
-                          bound_by=e["bound"][1], library_ms=None))
+                          bound_by=e["bound"][1],
+                          library_ms=e.get("library_ms")))
     missing = [t["name"] for t in table if t["launches"] < 1]
     if missing:
         raise SystemExit(f"kernels never launched on the main path: {missing}")

@@ -32,6 +32,9 @@ _SILENCE = ("possible", "main_possible", "flush_possible_pre",
 _ARRAYS = ("analysis_end", "out_pos", "new_spectrum", "reanalyse",
            "time_factor")
 _SEGMENT_KINDS = ("zeros", "input")
+_CONTROLS = Controls._fields
+_FLAGS = ("mapped", "process_formants", "formant_compensation",
+          "formant_auto")
 
 
 def _spans(spans) -> np.ndarray:
@@ -66,11 +69,11 @@ def plan_to_arrays(plan, controls=None, flags=None) -> dict:
         d["silence.pre_spans"] = _spans(sil.pre_spans)
         d["silence.pm_spans"] = _spans(sil.pm_spans)
     if controls is not None:
-        d["controls.freq_multiplier"] = np.float32(controls.freq_multiplier)
-        d["controls.freq_tonality_limit"] = np.float32(
-            controls.freq_tonality_limit)
+        for k in _CONTROLS:
+            d["controls." + k] = np.float32(getattr(controls, k))
     if flags is not None:
-        d["flags.mapped"] = np.asarray(bool(flags.mapped))
+        for k in _FLAGS:
+            d["flags." + k] = np.asarray(bool(getattr(flags, k)))
     return d
 
 
@@ -110,6 +113,5 @@ def plan_from_arrays(d: dict) -> ExactPlan:
 
 def controls_from_arrays(d: dict):
     """(Controls, SpectralFlags) from a plan_to_arrays dict."""
-    return (Controls(np.float32(d["controls.freq_multiplier"]),
-                     np.float32(d["controls.freq_tonality_limit"])),
-            SpectralFlags(mapped=bool(d["flags.mapped"])))
+    return (Controls(*[np.float32(d["controls." + k]) for k in _CONTROLS]),
+            SpectralFlags(*[bool(d["flags." + k]) for k in _FLAGS]))

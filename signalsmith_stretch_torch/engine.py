@@ -2,9 +2,9 @@
 
 The reference's exact() (signalsmith-stretch.h:467-491) chains outputSeek ->
 process -> flush over shared ring state.  Here the chain is: static schedule
-(schedule.py, host) -> timeline and frame windows -> batched modified-FFT
-analysis -> the planned spectral pipeline (planner + diagonal sweep) ->
-batched inverse FFT -> overlap-add -> WOLA-normalised assembly with the
+(schedule.py, host) -> timeline and frame windows -> batched modified-DFT
+analysis (kernel D) -> the planned spectral pipeline (planner + diagonal
+sweep) -> batched inverse FFT -> overlap-add -> WOLA-normalised assembly with the
 pre-roll cancellation (outputSeek :198-203), the reversed-tail subtraction
 (flush :444-454) and the silence bypass (:240-278) as closed-form tensor ops.
 Every stage carries the clip batch as its leading dimension.
@@ -159,20 +159,22 @@ def gather_frames(timeline: torch.Tensor, starts: np.ndarray,
     return windows[:, :, idx].transpose(1, 2)
 
 
-def analyze_stage(audio: torch.Tensor, plan: ExactPlan):
-    """Timeline + frames + modified-FFT analysis.  Returns (spectra,
-    prev_spectra), both [batch, nB, ch, B] complex64; prev_spectra holds the
-    re-analysis one interval back for the blocks in plan.re_rows, else 0."""
+def analyze_stage(audio: torch.Tensor, plan: ExactPlan, plain: bool = False):
+    """Timeline + frames + modified-DFT analysis (kernel D on the card).
+    Returns (spectra, prev_spectra), both [batch, nB, ch, B] complex64;
+    prev_spectra holds the re-analysis one interval back for the blocks in
+    plan.re_rows, else 0.  plain=True runs the plain analysis (torch.fft)."""
     timeline = _build_timeline(audio, plan)
     block = plan.cfg.block_samples
     nB = plan.frame_idx.shape[0]
     if not len(plan.re_rows):
         spectra = stft.analyze(gather_frames(timeline, plan.frame_idx[:, 0],
-                                             block), plan.basis)
+                                             block), plan.basis, plain)
         return spectra, torch.zeros_like(spectra)
-    # one window gather + one batched FFT for main and re-analysis frames
+    # one window gather + one batched DFT for main and re-analysis frames
     starts = np.concatenate([plan.frame_idx[:, 0], plan.re_frame_idx[:, 0]])
-    both = stft.analyze(gather_frames(timeline, starts, block), plan.basis)
+    both = stft.analyze(gather_frames(timeline, starts, block), plan.basis,
+                        plain)
     spectra = both[:, :nB]
     if len(plan.re_rows) == nB:     # fixed-rate renders re-analyse every block
         return spectra, both[:, nB:]
@@ -298,7 +300,7 @@ def render_exact(audio: torch.Tensor, plan: ExactPlan,
     plain=True runs the plain PyTorch versions of the kernels."""
     if not plan.sched.valid:
         return audio.new_zeros(audio.shape[:2] + (plan.sched.out_samples,))
-    spectra, prev_spectra = analyze_stage(audio, plan)
+    spectra, prev_spectra = analyze_stage(audio, plan, plain)
     out_specs = spectral_stage(spectra, prev_spectra, plan, controls, flags,
                                plain)
     return synthesis_stage(out_specs, plan, audio=audio)

@@ -36,17 +36,30 @@ class StretchModel(nn.Module):
     @classmethod
     def build(cls, channels: int, sample_rate: float, in_samples: int,
               out_samples: int, semitones: float = 0.0,
-              tonality_hz: float = 0.0, cheaper: bool = False,
+              tonality_hz: float = 0.0, formant_semitones: float = 0.0,
+              formant_compensation: bool = False,
+              formant_base_hz: float = 0.0, cheaper: bool = False,
               split: bool = False, device="cuda") -> "StretchModel":
+        """The reference's setters as the JAX package's builder computes
+        them: a formant base of 0 Hz (the default) estimates the pitch per
+        block."""
         make = (StretchConfig.preset_cheaper if cheaper
                 else StretchConfig.preset_default)
         cfg = make(channels, sample_rate, split)
         mult = f32(2.0 ** (f32(semitones) / f32(12)))
         limit = (f32(f32(tonality_hz / sample_rate) / f32(math.sqrt(mult)))
                  if tonality_hz > 0 else f32(1))
-        return cls(cfg, Controls(mult, limit),
-                   SpectralFlags(mapped=float(mult) != 1.0),
-                   in_samples, out_samples, device=device)
+        fm = f32(2.0 ** (f32(formant_semitones) / f32(12)))
+        controls = Controls(mult, limit, fm, f32(f32(1) / fm),
+                            f32(formant_base_hz / sample_rate))
+        flags = SpectralFlags(
+            mapped=float(mult) != 1.0,
+            process_formants=(float(fm) != 1.0 or (formant_compensation
+                                                   and float(mult) != 1.0)),
+            formant_compensation=formant_compensation,
+            formant_auto=formant_base_hz <= 0)
+        return cls(cfg, controls, flags, in_samples, out_samples,
+                   device=device)
 
     def forward(self, audio, plain: bool = False) -> torch.Tensor:
         """One clip [ch, in] -> [ch, out]."""

@@ -30,6 +30,9 @@ ENTRY = {
     "interp": ("sst_interp_multi", [_P] * 4 + [_I] * 6 + [_P]),
     "sweep": ("sst_sweep", [_P] * 5 + [_I] * 5 + [_P]),
     "scan": ("sst_iir", [_P] * 4 + [_I, _I, ctypes.c_float, _I, _P]),
+    "dft": ("sst_dft", [_P] * 6 + [_I] * 4 + [_P]),
+    "decay": ("sst_decay", [_P] * 5 + [_I] * 4 + [_P]),
+    "top3": ("sst_top3", [_P] * 3 + [_I] * 2 + [_P]),
 }
 SOURCES = tuple(ENTRY)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -10,13 +10,18 @@ a batch at once, in complex64:
   - for frequency-mapped renders: cross-channel energy, the slew smoothing
     (kernel C), peaks and the output map, and the prediction lookups at the
     mapped positions in one multi-set interpolation (kernel A);
+  - for formant renders (:970-1036): the pitch estimate (top-3 scan, kernel
+    F, and the freqEstimate chains over blocks on kernel C) unless a base
+    frequency is given, the envelope's eight decay passes (kernel E), and
+    the envelope ratio that rescales the input energies;
   - the prediction energies, the c1 chain coefficient and the four vote
     coefficients a1, a2, d1, d2 of the main prediction (:722-803).
 
-Formants and the randomised >2x stretch regime are not ported yet.
+The randomised >2x stretch regime is not ported yet.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -66,6 +71,84 @@ def _shift_up(x, n):
 
 def _where0(cond, x):
     return torch.where(cond, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+@functools.lru_cache(maxsize=8)
+def _formant_targets(controls: spectral.Controls, compensation: bool, B: int,
+                     N: int, device: torch.device):
+    """The envelope lookup's static positions (:1011-1036): the target band
+    of each bin (inverse formant map, after the pitch map when compensating)
+    as JAX's clipped take reads it: low and high indices into the envelope
+    padded with two zeros, the fraction, and the target_band < 0 mask.
+    Float32 on the CPU, computed once per (controls, shape, device)."""
+    band_freq = (torch.arange(B, dtype=torch.float32) + 0.5) / N
+    out_f = (spectral.map_freq(band_freq, controls) if compensation
+             else band_freq)
+    target = spectral.inv_map_formant(out_f, controls) * float(N) - 0.5
+    tb = target.clamp(max=B)
+    floor_band = torch.floor(tb)
+    lo = floor_band.to(torch.int64)
+    return tuple(t.to(device) for t in (lo.clamp(0, B + 1),
+                                        (lo + 1).clamp(0, B + 1),
+                                        tb - floor_band, target < 0))
+
+
+def _formant_ratio(metric: torch.Tensor, batch: int,
+                   controls: spectral.Controls, flags: spectral.SpectralFlags,
+                   consts: spectral.SpectralConsts, plain: bool, dbg):
+    """The formant envelope ratio (:970-1036): metric [R, B] (the
+    cross-channel energy, rows block-major per clip) -> ratio [R, B]."""
+    R, B = metric.shape
+    nB = R // batch
+    dev = metric.device
+
+    def zeros(n):
+        return torch.zeros(n, dtype=torch.float32, device=dev)
+
+    if flags.formant_auto:
+        # no base frequency given (the controls are scalars, so JAX's
+        # per-block select of a given base never applies): pitch estimate
+        # (:927-968), the top-3 scan (kernel F), the harmonic heuristic and
+        # the freqEstimateWeighted chains over blocks (C)
+        top3 = (spectral._top3_local_maxima if plain
+                else scan_ops.top3_local_maxima)
+        iir = scan_ops.iir_plain if plain else scan_ops.iir
+        pe_est, weight = spectral._peak_estimate(*top3(metric))
+        few, _ = iir((pe_est.to(torch.float32) * weight).reshape(batch, nB),
+                     zeros(batch), 0.25)
+        fw, _ = iir(weight.reshape(batch, nB).contiguous(), zeros(batch),
+                    0.25)
+        if dbg is not None:
+            dbg.update(freq_estimate_weighted=few, freq_weight=fw)
+        freq_estimate = (few / (fw + float(f32(1e-30)))).reshape(R)
+    else:
+        base = f32(controls.formant_base_freq)
+        base_band = float(f32(f32(base * f32(consts.fft_samples)) - f32(0.5)))
+        freq_estimate = torch.full((R,), base_band, dtype=torch.float32,
+                                   device=dev)
+
+    # envelope: two max passes with the decay, two min passes with its
+    # inverse, each pass starting from the previous one's last value (E)
+    decay = 1 - 1 / (freq_estimate * 0.5 + 1)
+    inv_decay = 1 / decay
+    run = scan_ops.decay_plain if plain else scan_ops.decay
+    env, e = metric, zeros(R)
+    for coef, is_min in ((decay, False), (inv_decay, True)):
+        for _ in range(2):
+            env, e = run(env, e, coef, is_min, backward=True)
+            env, e = run(env, e, coef, is_min)
+
+    lo_i, hi_i, frac, below = _formant_targets(
+        controls, flags.formant_compensation, B, consts.fft_samples, dev)
+    env_pad = F.pad(env, (0, 2))
+    lo, hi = env_pad[:, lo_i], env_pad[:, hi_i]
+    target_e = torch.where(below, torch.zeros((), device=dev),
+                           lo + (hi - lo) * frac)
+    ratio = target_e / (env + float(f32(1e-30)))
+    if dbg is not None:
+        dbg.update(metric=metric, freq_estimate=freq_estimate, env=env,
+                   ratio=ratio)
+    return ratio
 
 
 def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
@@ -121,14 +204,16 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
     in_energy = (input_eff.real * input_eff.real
                  + input_eff.imag * input_eff.imag)         # [batch, nB, ch, B]
     ltf = (f32(longv) * tf).astype(f32)
-
-    if flags.mapped:
-        # ---- smoothing + peaks + output map (:816-917) --------------------
-        R = batch * nB
+    R = batch * nB
+    if flags.mapped or flags.process_formants:
+        # cross-channel energy, before the formant ratio
         energy = in_energy[:, :, 0]
         for c in range(1, ch):
             energy = energy + in_energy[:, :, c]
         energy = energy.reshape(R, B).contiguous()
+
+    if flags.mapped:
+        # ---- smoothing + peaks + output map (:816-917) --------------------
         iir = scan_ops.iir_plain if plain else scan_ops.iir   # kernel C
         sm = energy
         e = torch.zeros(R, dtype=torch.float32, device=dev)
@@ -137,6 +222,18 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
             sm, e = iir(sm, e, consts.slew)
         input_bin, freq_grad = spectral._peaks_and_map(energy, sm, controls,
                                                        consts)
+        if debug:
+            dbg.update(energy=energy, smoothed=sm, input_bin=input_bin,
+                       freq_grad=freq_grad)
+
+    if flags.process_formants:
+        # ---- formants (:970-1036): every later read of in_energy (the
+        # interp rows, the unmapped prediction energies) sees the ratio ----
+        ratio = _formant_ratio(energy, batch, controls, flags, consts, plain,
+                               dbg if debug else None)
+        in_energy = in_energy * ratio.reshape(batch, nB, 1, B)
+
+    if flags.mapped:
         # ---- prediction lookups at the mapped positions (:697-719) --------
         # one multi-set call (kernel A): the prelim lookups of input,
         # prevInput and energy at input_bin, and the vote taps of the input
@@ -161,8 +258,7 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
         prev_i = vals[ch:2 * ch]
         pe = [v * pos_grad for v in vals[2 * ch:]]
         if debug:
-            dbg.update(energy=energy, smoothed=sm, input_bin=input_bin,
-                       freq_grad=freq_grad, interp=(planes, pos_sets))
+            dbg.update(interp=(planes, pos_sets))
     else:
         pe = [in_energy[:, :, c] for c in range(ch)]
         pi = [input_eff[:, :, c] for c in range(ch)]

@@ -64,12 +64,19 @@ class SpectralConsts:
 class SpectralFlags:
     """Static branch structure (the reference's bools)."""
     mapped: bool                  # freqMultiplier != 1 (:300)
+    process_formants: bool = False        # (:310)
+    formant_compensation: bool = False
+    formant_auto: bool = True     # formantBaseFreq <= 0: run the pitch
+                                  # estimator (:982-983)
 
 
 class Controls(NamedTuple):
     """Control scalars, numpy float32 (so host arithmetic rounds to f32)."""
     freq_multiplier: np.float32
     freq_tonality_limit: np.float32
+    formant_multiplier: np.float32 = f32(1)
+    inv_formant_multiplier: np.float32 = f32(1)
+    formant_base_freq: np.float32 = f32(0)
 
     @classmethod
     def make(cls, freq_multiplier=1.0, freq_tonality_limit=1.0):
@@ -84,6 +91,15 @@ def map_freq(freq: torch.Tensor, controls: Controls) -> torch.Tensor:
     mult = f32(controls.freq_multiplier)
     above = freq + float(f32(f32(mult - f32(1)) * limit))
     return torch.where(freq > float(limit), above, freq * float(mult))
+
+
+def inv_map_formant(freq: torch.Tensor, controls: Controls) -> torch.Tensor:
+    """The inverse formant map (:920-925)."""
+    limit = f32(controls.freq_tonality_limit)
+    inv = float(f32(controls.inv_formant_multiplier))
+    above = freq + float(f32(f32(f32(1) - f32(controls.formant_multiplier))
+                             * limit))
+    return torch.where(freq * inv > float(limit), above, freq * inv)
 
 
 def _freq_to_band(freq, consts: SpectralConsts):
@@ -192,3 +208,47 @@ def _peaks_and_map(energy: torch.Tensor, smoothed: torch.Tensor,
     input_bin = torch.where(no_peaks, b_idx.expand(R, B), input_bin)
     freq_grad = torch.where(no_peaks, one, freq_grad)
     return input_bin, freq_grad
+
+
+# ---------------------------------------------------------------------------
+# Pitch estimation (signalsmith-stretch.h:927-968), batched over rows
+# ---------------------------------------------------------------------------
+def _top3_local_maxima(metric: torch.Tensor):
+    """Plain version of the top-3 insertion scan (:931-948): a loop over
+    bins 1..B-2, vectorised over rows.  metric [R, B] f32 -> (i0, v0, i1,
+    v1, i2, v2), each [R] (indices int32, values f32)."""
+    R, B = metric.shape
+    i0 = i1 = i2 = torch.zeros(R, dtype=torch.int32, device=metric.device)
+    v0 = v1 = v2 = metric[:, 0]
+    for b in range(1, B - 1):
+        e, ep, en = metric[:, b], metric[:, b - 1], metric[:, b + 1]
+        bt = torch.full_like(i0, b)
+        is_max = ~(e < ep) & ~(e <= en)
+        m0 = is_max & (e > v0)
+        m1 = m0 & (e > v1)
+        m2 = m1 & (e > v2)
+        i0, v0 = (torch.where(m1, i1, torch.where(m0, bt, i0)),
+                  torch.where(m1, v1, torch.where(m0, e, v0)))
+        i1, v1 = (torch.where(m2, i2, torch.where(m1, bt, i1)),
+                  torch.where(m2, v2, torch.where(m1, e, v1)))
+        i2, v2 = torch.where(m2, bt, i2), torch.where(m2, e, v2)
+    return i0, v0, i1, v1, i2, v2
+
+
+def _peak_estimate(i0, v0, i1, v1, i2, v2):
+    """Harmonic-spacing heuristic (:950-959) -> (peakEstimate int32,
+    weight f32).  Every operand of // and % is non-negative, so floor
+    division and remainder give the C++ (truncating) values."""
+    def div(a, b):
+        return torch.div(a, b, rounding_mode="floor")
+
+    pe = i2
+    c1 = v1 > v2 * float(f32(0.1))
+    diff = (pe - i1).abs()
+    ok1 = c1 & (diff > div(pe, 8)) & (diff < div(pe * 7, 8))
+    pe = torch.where(ok1, torch.remainder(pe, diff.clamp(min=1)), pe)
+    c2 = c1 & (v0 > v2 * float(f32(0.01)))
+    diff2 = (pe - i0).abs()
+    ok2 = c2 & (diff2 > div(pe, 8)) & (diff2 < div(pe * 7, 8))
+    pe = torch.where(ok2, torch.remainder(pe, diff2.clamp(min=1)), pe)
+    return pe, v2

@@ -6,9 +6,18 @@ without JAX run them without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerance: bit equality.  The kernels are built with --fmad=false and IEEE
-division and square root, so they round at the same points as the plain
-versions, which are written as separate float32 PyTorch ops.
+Tolerances.  Kernels A, B, C, E and F: bit equality.  They are built with
+--fmad=false and IEEE division and square root, so they round at the same
+points as the plain versions, which are written as separate float32
+PyTorch ops.  Kernel D, the analysis DFT, is a two-stage DFT held to its
+plain version (cuFFT) at 3e-6 of the spectrum's peak magnitude, the JAX
+package's gate between its matmul DFT and its FFT (tests/test_stft.py:79).
+Renders (`chip_smoke.render_vs_plain`, the gate of chip_smoke.py): the
+spectral stage through A, B, C, E and F on the spectra of one analysis
+through D is bit-equal to its plain version; the whole render goes through
+D, so it is bit-equal to the plain render or, failing that, within 12 dB
+of the plain render's own response to a 1-ulp change of its input, with
+band energies within 3 dB.
 """
 import numpy as np
 import pytest
@@ -16,9 +25,11 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from signalsmith_stretch_torch import wavefront  # noqa: E402
+import chip_smoke  # noqa: E402
+from signalsmith_stretch_torch import stft, wavefront  # noqa: E402
+from signalsmith_stretch_torch.config import StretchConfig  # noqa: E402
 from signalsmith_stretch_torch.models import StretchModel  # noqa: E402
-from signalsmith_stretch_torch.ops import interp, scan_ops  # noqa: E402
+from signalsmith_stretch_torch.ops import dft, interp, scan_ops  # noqa: E402
 from signalsmith_stretch_torch.planner import SweepInputs  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -92,16 +103,67 @@ def test_sweep_kernel_matches_plain(dev, nB, B):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("semitones", [0, 12])
-def test_render_kernels_match_plain(dev, semitones):
+@pytest.mark.parametrize("kw", [
+    dict(semitones=0), dict(semitones=12),
+    dict(semitones=5, formant_semitones=3, formant_compensation=True),
+    dict(formant_semitones=4)], ids=["0", "12", "formant_pitch", "formant"])
+def test_render_kernels_match_plain(dev, kw):
     rng = np.random.default_rng(3)
     rate, n = 8000, 12000
     t = np.arange(n) / rate
     clip = np.stack([0.4 * np.sin(2 * np.pi * 165 * t + c)
                      + 0.02 * rng.standard_normal(n) for c in range(2)])
     model = StretchModel.build(channels=2, sample_rate=rate, in_samples=n,
-                               out_samples=int(n * 1.25),
-                               semitones=semitones, tonality_hz=2000,
-                               device=dev)
-    audio = _t(clip[None].astype(np.float32), dev)
-    assert torch.equal(model.batched(audio), model.batched(audio, plain=True))
+                               out_samples=int(n * 1.25), tonality_hz=2000,
+                               device=dev, **kw)
+    ok, gate = chip_smoke.render_vs_plain(
+        model, _t(clip[None].astype(np.float32), dev))
+    assert ok, gate
+
+
+@pytest.mark.parametrize("preset,rate", [("preset_default", 48000),
+                                         ("preset_cheaper", 44100),
+                                         ("preset_default", 8000)])
+def test_dft_kernel_matches_plain(dev, preset, rate):
+    """Block 5760 (N 8192, 45 rows of 128), 4410 (35 rows, the last one
+    partly past the block) and 960 (N 1024, N2 32)."""
+    basis = stft.StftBasis.for_config(getattr(StretchConfig, preset)(2, rate))
+    rng = np.random.default_rng(5)
+    frames = _t(rng.standard_normal((3, 37, basis.block_samples))
+                .astype(np.float32), dev)
+    got = dft.analyze(frames, basis)
+    ref = stft.analyze_plain(frames, basis)
+    assert got.shape == ref.shape and got.dtype == torch.complex64
+    err = (got - ref).abs().max() / ref.abs().max()
+    assert float(err) <= 3e-6, float(err)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("is_min", [False, True])
+def test_decay_kernel_matches_plain(dev, is_min, backward):
+    rng = np.random.default_rng(6)
+    x = rng.exponential(0.5, (37, 513)).astype(np.float32)
+    x[3] = 0                                 # a silent row
+    decay = rng.uniform(0.8, 0.99, 37).astype(np.float32)
+    decay[3] = 0
+    coef = (np.float32(1) / decay) if is_min else decay  # inf on row 3
+    init = rng.uniform(0, 1, 37).astype(np.float32)
+    args = [_t(v, dev) for v in (x, init, coef.astype(np.float32))]
+    y, fin = scan_ops.decay(*args, is_min, backward)
+    yp, finp = scan_ops.decay_plain(*args, is_min, backward)
+    assert torch.equal(y, yp) and torch.equal(fin, finp)
+    assert not torch.isnan(y).any()
+
+
+def test_top3_kernel_matches_plain(dev):
+    rng = np.random.default_rng(7)
+    m = rng.exponential(0.01, (41, 300)).astype(np.float32)
+    for r in range(41):
+        m[r, rng.integers(1, 299, 8)] += rng.uniform(0.5, 5, 8)
+    m[1] = np.round(m[1] * 4) / 4            # plateaus
+    m[2, 10:20] = m[2, 40:50] = 3.0          # equal peaks
+    m[3] = 0                                 # silent row
+    got = scan_ops.top3_local_maxima(_t(m, dev))
+    ref = scan_ops.spectral._top3_local_maxima(_t(m, dev))
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
