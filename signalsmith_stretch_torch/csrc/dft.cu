@@ -1,163 +1,324 @@
 // The analysis DFT: the modified real DFT of windowed frames
-//   S_b = sum_n w[n] x[n] e^{-2 pi i n (b + 0.5) / N},   b < N/2,
+//   S_b = sum_n w[n] x[n] e^{-2 pi i n (b + 0.5) / N},   b < M = N/2,
 // with the window multiply and the zero pad past `block` fused in, computed
-// as the two-stage Cooley-Tukey factorisation of stft._dft_mats:
-//   n = n1*N2 + n2,  b = k1 + N1*k2,
-//   A[k1, n2] = sum_{n1 < n1u} dft1[k1, n1] y[n1*N2 + n2]   (stage 1, real y)
-//   B[k1, n2] = A[k1, n2] * tw[k1, n2]                       (twiddle)
-//   S[k1 + N1*k2] = sum_{n2} B[k1, n2] dft2[n2, k2]          (stage 2)
-// where n1u = ceil(block / N2) rows are read and samples at n >= block are
-// zero (the fft pad never materialises).  Spectra come out complex64
-// (float2) in natural band order.
+// as ONE complex FFT of half length M per frame.  y = w*x is real, so
+// S_{N-1-b} = conj(S_b) and
+//   z_m = (y_{2m} + i y_{2m+1}) e^{-i pi m / M}            (pack, pre-twist)
+//   Z   = FFT_M(z)
+//   E_b = (Z_b + conj Z_{M-1-b}) / 2,  O_b = (Z_b - conj Z_{M-1-b}) / 2i
+//   S_b = E_b + e^{-2 pi i (b + 0.5) / N} O_b                (post-combine)
+// and S_{M-1-b} = conj(E_b - e^{-2 pi i (b + 0.5) / N} O_b), so one thread
+// finishes the pair (b, M-1-b) from Z_b and Z_{M-1-b}.  Spectra come out
+// complex64 (float2) in band order.
 //
 // Replaces the Pallas kernel `fwd` of tools/exp_pallas_dft.py:pallas_fwd
 // (pallas_call at :81), the fused form of the JAX package's two-stage matmul
 // DFT (signalsmith_stretch_tpu/stft.py:_matmul_dft), which kept stage 1, the
 // twiddle and stage 2 in VMEM per tile of frames.
 //
-// Bound on this card: at bench shapes (N 8192, block 5760) the bytes take
-// ~0.22 ms and the ~5.7 MFLOP per frame ~1.1 ms at the float32 rate, so the
-// operations bound it; in practice the loads of the constants from shared
-// memory and L1 do.  Design: a persistent CTA per SM walks over frames.
-// dft2 ([N2, N2/2] complex, 64 KB at N 8192) is staged in shared memory once
-// per CTA, so the constant traffic per frame is the L1-resident dft1 and the
-// twiddles, not the 2 MiB fused T1/T2 tensors of the TPU kernel.  Stage 1:
-// thread (n2, group) reads its column of y once (coalesced) and keeps N/T
-// complex accumulators in registers; it applies the twiddle and stores B
-// transposed ([n2][k1], row stride N1+1, so neither the stores nor the
-// stage-2 loads conflict on banks).  Stage 2: thread (k1, q) keeps N/(2T)
-// outputs k2 = q + j*T/N1 for one k1; within a warp k2 is uniform, so the
-// dft2 loads broadcast, and the outputs are written coalesced in band order.
-// The sums use explicit fmaf: the kernel is held to 3e-6 of the spectrum's
-// peak against cuFFT, not to a bit pattern, so it takes the single rounding.
+// Bound on this card: bytes.  At bench shapes (N 8192, block 5760) a frame
+// reads 23 KB and writes 32 KB (0.22 ms for the 1.25x render's 13,376
+// frames at 3.35 TB/s); the FFT's ~0.3 MFLOP per frame take a quarter of
+// that at the float32 rate.  Design: a persistent CTA walks over frames,
+// three CTAs an SM so that one frame's loads overlap another's passes.  The
+// FFT is Stockham autosort, mixed radix (the plan below: radix 16 and 8
+// passes, one radix 2 pass at M 8192): each thread holds one radix-R
+// butterfly (or several) in registers, and the frame sits in shared memory
+// between passes, padded by one float2 every 16 so that the strided writes
+// of the first pass and the reads of every pass are free of bank conflicts.
+// Pass p with radix R after NS = R_0...R_{p-1}: butterfly j reads
+// X[j + r M/R], multiplies by W_{NS R}^{r (j mod NS)}, runs a DFT of R
+// points and writes Y[(j / NS) NS R + j mod NS + r NS]; the last pass leaves
+// Z in natural order.  A CTA stages its next frame into shared memory with
+// cp.async (16-byte copies where the frame is aligned) while it runs the
+// current frame's passes; the first pass reads the staged sample pairs,
+// zeros at or past `block` (the pad never materialises).  A CTA holds
+// 57.8 KB of shared memory at N 8192 (the padded frame and the staged
+// samples) and its threads stay within 85 registers, so an SM holds three
+// CTAs (the pass twiddles in shared memory as well allowed two).  Twiddles
+// come from host tables rounded from float64 (no __sinf/__cosf), read
+// through the read-only cache, which keeps them for every CTA of the SM:
+// the pass twiddles, laid out [r-1][j mod NS] per pass so that a warp reads
+// consecutive entries, the pre-twist, the post-twiddle and the window.  The
+// sums use explicit fmaf: the kernel is held to 3e-6 of the spectrum's peak
+// against cuFFT, not to a bit pattern.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+// radix of pass p of the plan for N = 2^LOG2N (0 past the last pass);
+// ops/dft.py RADICES holds the same plan and builds the twiddle tables
+__host__ __device__ constexpr int radix(int log2n, int p) {
+  return log2n == 10 ? (p < 3 ? 8 : 0)
+       : log2n == 11 ? (p == 0 ? 16 : p < 3 ? 8 : 0)
+       : log2n == 12 ? (p < 2 ? 16 : p == 2 ? 8 : 0)
+       : log2n == 13 ? (p < 3 ? 16 : 0)
+       : log2n == 14 ? (p < 3 ? 16 : p == 3 ? 2 : 0) : 0;
+}
+// NS of pass p: the product of the radices before it
+__host__ __device__ constexpr int span(int log2n, int p) {
+  return p == 0 ? 1 : span(log2n, p - 1) * radix(log2n, p - 1);
+}
+// offset of pass p's twiddles in the table: (R-1)*NS entries per pass >= 1
+__host__ __device__ constexpr int tw_offset(int log2n, int p) {
+  return p <= 1 ? 0
+                : tw_offset(log2n, p - 1) +
+                      (radix(log2n, p - 1) - 1) * span(log2n, p - 1);
+}
+__host__ __device__ constexpr int passes(int log2n) {
+  return radix(log2n, 3) ? 4 : 3;
+}
+__host__ __device__ constexpr int max_radix(int log2n) {
+  return log2n == 10 ? 8 : 16;
+}
 __host__ __device__ constexpr int dft_threads(int log2n) {
-  return (1 << log2n) / 32 > 128 ? (1 << log2n) / 32 : 128;
+  return (1 << (log2n - 1)) / max_radix(log2n);
+}
+// CTAs an SM should hold: 768 threads at <= 85 registers each
+__host__ __device__ constexpr int min_blocks(int log2n) {
+  return 768 / dft_threads(log2n);
+}
+__host__ __device__ constexpr int tw_count(int log2n) {
+  return tw_offset(log2n, passes(log2n));
+}
+__host__ __device__ constexpr int padded(int i) { return i + (i >> 4); }
+
+// asynchronous copies device memory -> shared memory (sm_80+)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
 
-template <int LOG2N>
-struct Geom {
-  static constexpr int N = 1 << LOG2N;
-  static constexpr int N1 = 1 << (LOG2N / 2);
-  static constexpr int N2 = N / N1;
-  static constexpr int K2 = N2 / 2;
-  static constexpr int T = dft_threads(LOG2N);
-  static constexpr int KPT = N / T;          // stage 1: k1 values per thread
-  static constexpr int OPT = N / 2 / T;      // stage 2: outputs per thread
-  static constexpr int Q = T / N1;           // stage 2: k2 stride
-  static constexpr int S = N1 + 1;           // row stride of transposed B
-  static constexpr size_t SMEM = sizeof(float2) * N2 * K2
-                                 + 2 * sizeof(float) * N2 * S;
-  static_assert(N2 >= 32 && N1 >= 32, "warp-uniform groups need N1, N2 >= 32");
-  static_assert(T % N2 == 0 && T % N1 == 0, "thread layout");
-};
+// stage frame f ([block] f32) into shared memory: 16-byte copies when the
+// frame is 16-byte aligned, else 4-byte ones
+template <int T>
+__device__ __forceinline__ void stage_frame(float* xs, const float* x, int f,
+                                            int block, int vec4, int t) {
+  const float* xf = x + (long long)f * block;
+  if (vec4) {
+    for (int i = t; i < block / 4; i += T) cp_async16(xs + 4 * i, xf + 4 * i);
+  } else {
+    for (int i = t; i < block; i += T) cp_async4(xs + i, xf + i);
+  }
+}
 
-template <int LOG2N>
-__global__ void __launch_bounds__(Geom<LOG2N>::T)
-dft_kernel(const float* __restrict__ x, const float* __restrict__ w,
-           const float2* __restrict__ dft1, const float2* __restrict__ tw,
-           const float2* __restrict__ dft2, float2* __restrict__ out, int F,
-           int block, int n1u) {
-  using G = Geom<LOG2N>;
-  extern __shared__ float2 smem[];
-  float2* d2s = smem;                              // [N2][K2]
-  float* btr = reinterpret_cast<float*>(smem + G::N2 * G::K2);
-  float* bti = btr + G::N2 * G::S;                 // [N2][S]
-  const int t = threadIdx.x;
-  for (int i = t; i < G::N2 * G::K2; i += G::T) d2s[i] = dft2[i];
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
+}
+
+// W_16^e = e^{-2 pi i e / 16} for 0 < e < 8, e != 4, as float literals
+__device__ __forceinline__ float2 w16(int e) {
+  constexpr float c1 = 0.923879532511286756f, s1 = 0.382683432365089772f;
+  constexpr float h = 0.707106781186547524f;
+  const float c = e == 1 ? c1 : e == 2 ? h : e == 3 ? s1
+                : e == 5 ? -s1 : e == 6 ? -h : -c1;
+  const float s = e == 1 ? s1 : e == 2 ? h : e == 3 ? c1
+                : e == 5 ? c1 : e == 6 ? h : s1;
+  return make_float2(c, -s);
+}
+
+// b * W_R^e for e < R/2, with the trivial factors 1 and -i taken exactly
+template <int R>
+__device__ __forceinline__ float2 twiddle(int e, float2 b) {
+  if (e == 0) return b;
+  if (4 * e == R) return make_float2(b.y, -b.x);
+  return cmul(b, w16(e * (16 / R)));
+}
+
+// i < 2^bits with its low `bits` bits reversed, bits <= 4
+__host__ __device__ constexpr int bitrev(int i, int bits) {
+  return (((i & 1) << 3) | ((i & 2) << 1) | ((i & 4) >> 1) | ((i & 8) >> 3)) >>
+         (4 - bits);
+}
+__host__ __device__ constexpr int ilog2(int r) {
+  return r <= 1 ? 0 : 1 + ilog2(r / 2);
+}
+
+// one radix-2 stage of length LEN, then the next: butterfly i pairs
+// s + k and s + k + LEN/2 (k = i mod LEN/2, s = LEN*(i div LEN/2)), with a
+// constant trip count so that every register index is a constant
+template <int R, int LEN>
+__device__ __forceinline__ void radix2_stages(float2 (&u)[R]) {
+#pragma unroll
+  for (int i = 0; i < R / 2; ++i) {
+    const int k = i % (LEN / 2), s = LEN * (i / (LEN / 2));
+    const float2 a = u[s + k];
+    const float2 b = twiddle<R>(k * (R / LEN), u[s + k + LEN / 2]);
+    u[s + k] = make_float2(a.x + b.x, a.y + b.y);
+    u[s + k + LEN / 2] = make_float2(a.x - b.x, a.y - b.y);
+  }
+  if constexpr (LEN < R) radix2_stages<R, 2 * LEN>(u);
+}
+
+// in-register DFT of R <= 16 points, natural order in and out: radix-2
+// decimation in time after a bit-reversal permutation
+template <int R>
+__device__ __forceinline__ void dft_regs(float2 (&v)[R]) {
+  float2 u[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) u[i] = v[bitrev(i, ilog2(R))];
+  radix2_stages<R, 2>(u);
+#pragma unroll
+  for (int i = 0; i < R; ++i) v[i] = u[i];
+}
+
+// pass P >= 1: shared memory -> registers -> shared memory, in place
+template <int LOG2N, int P>
+__device__ __forceinline__ void fft_pass(float2* buf,
+                                         const float2* __restrict__ tws,
+                                         int t) {
+  constexpr int M = 1 << (LOG2N - 1), R = radix(LOG2N, P);
+  constexpr int NS = span(LOG2N, P), T = dft_threads(LOG2N);
+  constexpr int Q = M / R / T;                 // butterflies per thread
+  const float2* tw = tws + tw_offset(LOG2N, P);
+  float2 v[Q][R];
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[q][r] = buf[padded(t + q * T + r * (M / R))];
   __syncthreads();
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int j = t + q * T, k = j % NS;
+#pragma unroll
+    for (int r = 1; r < R; ++r)
+      v[q][r] = cmul(v[q][r], __ldg(tw + (r - 1) * NS + k));
+    dft_regs<R>(v[q]);
+    const int base = (j / NS) * NS * R + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) buf[padded(base + r * NS)] = v[q][r];
+  }
+  __syncthreads();
+}
 
-  const int n2 = t % G::N2, k1a = (t / G::N2) * G::KPT;   // stage 1
-  const int k1 = t % G::N1, q = t / G::N1;                 // stage 2
-  const float2* d1 = dft1 + (long long)k1a * n1u;
-  for (int f = blockIdx.x; f < F; f += gridDim.x) {
-    const float* xf = x + (long long)f * block;
-    float ar[G::KPT], ai[G::KPT];
-#pragma unroll
-    for (int i = 0; i < G::KPT; ++i) ar[i] = ai[i] = 0.f;
-    float yv = n2 < block ? xf[n2] * w[n2] : 0.f;
-    for (int n1 = 0; n1 < n1u; ++n1) {
-      const int nn = (n1 + 1) * G::N2 + n2;     // prefetch the next row
-      const float yn = (n1 + 1 < n1u && nn < block) ? xf[nn] * w[nn] : 0.f;
-#pragma unroll
-      for (int i = 0; i < G::KPT; ++i) {
-        const float2 d = __ldg(d1 + i * n1u + n1);
-        ar[i] = fmaf(d.x, yv, ar[i]);
-        ai[i] = fmaf(d.y, yv, ai[i]);
-      }
-      yv = yn;
-    }
-#pragma unroll
-    for (int i = 0; i < G::KPT; ++i) {
-      const float2 c = __ldg(tw + (k1a + i) * G::N2 + n2);
-      btr[n2 * G::S + k1a + i] = fmaf(ar[i], c.x, -ai[i] * c.y);
-      bti[n2 * G::S + k1a + i] = fmaf(ar[i], c.y, ai[i] * c.x);
-    }
-    __syncthreads();
-
-    float xr[G::OPT], xi[G::OPT];
-#pragma unroll
-    for (int j = 0; j < G::OPT; ++j) xr[j] = xi[j] = 0.f;
-    for (int m = 0; m < G::N2; ++m) {
-      const float br = btr[m * G::S + k1], bi = bti[m * G::S + k1];
-      const float2* d2 = d2s + m * G::K2 + q;
-#pragma unroll
-      for (int j = 0; j < G::OPT; ++j) {
-        const float2 d = d2[j * G::Q];
-        xr[j] = fmaf(br, d.x, fmaf(-bi, d.y, xr[j]));
-        xi[j] = fmaf(br, d.y, fmaf(bi, d.x, xi[j]));
-      }
-    }
-    float2* of = out + (long long)f * (G::N / 2);
-#pragma unroll
-    for (int j = 0; j < G::OPT; ++j)
-      of[k1 + G::N1 * (q + j * G::Q)] = make_float2(xr[j], xi[j]);
-    __syncthreads();            // B is overwritten by the next frame
+template <int LOG2N, int P>
+__device__ __forceinline__ void fft_passes(float2* buf,
+                                           const float2* __restrict__ tws,
+                                           int t) {
+  if constexpr (P < passes(LOG2N)) {
+    fft_pass<LOG2N, P>(buf, tws, t);
+    fft_passes<LOG2N, P + 1>(buf, tws, t);
   }
 }
 
 template <int LOG2N>
-static int launch(const float* x, const float* w, const float2* dft1,
-                  const float2* tw, const float2* dft2, float2* out, int F,
-                  int block, int n1u, cudaStream_t stream) {
-  using G = Geom<LOG2N>;
+__global__ void __launch_bounds__(dft_threads(LOG2N), min_blocks(LOG2N))
+dft_kernel(const float* __restrict__ x, const float2* __restrict__ w2,
+           const float2* __restrict__ pre, const float2* __restrict__ post,
+           const float2* __restrict__ tw, float2* __restrict__ out, int F,
+           int block, int vec4) {
+  constexpr int M = 1 << (LOG2N - 1), T = dft_threads(LOG2N);
+  constexpr int R0 = radix(LOG2N, 0), Q0 = M / R0 / T;
+  extern __shared__ float2 smem[];
+  float2* buf = smem;                                   // [padded(M)]
+  float* xs = reinterpret_cast<float*>(smem + padded(M));  // [block]
+  const int t = threadIdx.x;
+  if (blockIdx.x < F) stage_frame<T>(xs, x, blockIdx.x, block, vec4, t);
+
+  for (int f = blockIdx.x; f < F; f += gridDim.x) {
+    cp_async_wait_all();
+    __syncthreads();   // frame f staged; the previous post-combine is done
+    // first pass: z_m for m = j + r M/R0 from the staged frame
+    float2 v[Q0][R0];
+#pragma unroll
+    for (int q = 0; q < Q0; ++q)
+#pragma unroll
+      for (int r = 0; r < R0; ++r) {
+        const int m = t + q * T + r * (M / R0), n = 2 * m;
+        float2 xv = make_float2(0.f, 0.f);
+        if (n + 1 < block) {
+          xv = *reinterpret_cast<const float2*>(xs + n);
+        } else if (n < block) {
+          xv.x = xs[n];
+        }
+        const float2 wv = __ldg(w2 + m), p = __ldg(pre + m);
+        const float ye = xv.x * wv.x, yo = xv.y * wv.y;
+        v[q][r] =
+            make_float2(fmaf(ye, p.x, -yo * p.y), fmaf(ye, p.y, yo * p.x));
+      }
+#pragma unroll
+    for (int q = 0; q < Q0; ++q) {
+      dft_regs<R0>(v[q]);
+      const int j = t + q * T;
+#pragma unroll
+      for (int r = 0; r < R0; ++r) buf[padded(j * R0 + r)] = v[q][r];
+    }
+    __syncthreads();   // the staged frame is read: stage the next one
+    if (f + gridDim.x < F)
+      stage_frame<T>(xs, x, f + gridDim.x, block, vec4, t);
+    fft_passes<LOG2N, 1>(buf, tw, t);
+
+    // post-combine: thread pairs band b with band M-1-b
+    float2* of = out + (long long)f * M;
+#pragma unroll
+    for (int q = 0; q < M / 2 / T; ++q) {
+      const int b = t + q * T;
+      const float2 zb = buf[padded(b)], zm = buf[padded(M - 1 - b)];
+      const float er = 0.5f * (zb.x + zm.x), ei = 0.5f * (zb.y - zm.y);
+      const float2 o = make_float2(0.5f * (zb.y + zm.y), -0.5f * (zb.x - zm.x));
+      const float2 po = cmul(__ldg(post + b), o);
+      of[b] = make_float2(er + po.x, ei + po.y);
+      of[M - 1 - b] = make_float2(er - po.x, -(ei - po.y));
+    }
+  }
+}
+
+template <int LOG2N>
+static int launch(const float* x, const float2* w2, const float2* pre,
+                  const float2* post, const float2* tw, float2* out, int F,
+                  int block, int vec4, cudaStream_t stream) {
+  constexpr int M = 1 << (LOG2N - 1), T = dft_threads(LOG2N);
+  const size_t smem =
+      sizeof(float2) * padded(M) + sizeof(float) * ((block + 3) & ~3);
   cudaError_t err = cudaFuncSetAttribute(
       dft_kernel<LOG2N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)G::SMEM);
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, dft_kernel<LOG2N>, G::T, G::SMEM);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
+                                                      dft_kernel<LOG2N>, T,
+                                                      smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int grid = F < sms * per_sm ? F : sms * per_sm;
-  dft_kernel<LOG2N><<<grid, G::T, G::SMEM, stream>>>(x, w, dft1, tw, dft2,
-                                                     out, F, block, n1u);
+  dft_kernel<LOG2N><<<grid, T, smem, stream>>>(x, w2, pre, post, tw, out, F,
+                                                block, vec4);
   return (int)cudaGetLastError();
 }
 
-// x [F, block] f32 frames; w [block] f32 window; dft1 [N1, n1u], tw [N1, N2]
-// and dft2 [N2, N2/2] complex64 (stft._dft_mats, dft1 cut to n1u columns);
-// out [F, N/2] complex64.  N = 2^log2n with 10 <= log2n <= 14.  Returns a
-// cudaError_t (cudaErrorInvalidValue for another N).
-extern "C" int sst_dft(const float* x, const float* w, const void* dft1,
-                       const void* tw, const void* dft2, void* out, int F,
-                       int block, int log2n, int n1u, void* stream) {
+// x [F, block] f32 frames; w2 [N] f32 window, zero past block; pre [N/2]
+// and post [N/4] complex64; tw [n_tw] complex64 pass twiddles (ops/dft.py
+// tables); out [F, N/2] complex64.  N = 2^log2n with 10 <= log2n <= 14 and
+// block <= N.  Returns a cudaError_t (cudaErrorInvalidValue for another N,
+// or a twiddle table that does not match this plan).
+extern "C" int sst_dft(const float* x, const float* w2, const void* pre,
+                       const void* post, const void* tw, void* out, int F,
+                       int block, int log2n, int n_tw, void* stream) {
   if (F <= 0) return (int)cudaSuccess;
-  const float2 *d1 = (const float2*)dft1, *t2 = (const float2*)tw,
-               *d2 = (const float2*)dft2;
+  if (log2n < 10 || log2n > 14 || block < 1 || block > (1 << log2n) ||
+      n_tw != tw_count(log2n))
+    return (int)cudaErrorInvalidValue;
+  const int vec4 = block % 4 == 0 && ((uintptr_t)x & 15) == 0;
+  const float2 *w = (const float2*)w2, *p = (const float2*)pre,
+               *q = (const float2*)post, *t = (const float2*)tw;
   float2* o = (float2*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (log2n) {
-    case 10: return launch<10>(x, w, d1, t2, d2, o, F, block, n1u, s);
-    case 11: return launch<11>(x, w, d1, t2, d2, o, F, block, n1u, s);
-    case 12: return launch<12>(x, w, d1, t2, d2, o, F, block, n1u, s);
-    case 13: return launch<13>(x, w, d1, t2, d2, o, F, block, n1u, s);
-    case 14: return launch<14>(x, w, d1, t2, d2, o, F, block, n1u, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 10: return launch<10>(x, w, p, q, t, o, F, block, vec4, s);
+    case 11: return launch<11>(x, w, p, q, t, o, F, block, vec4, s);
+    case 12: return launch<12>(x, w, p, q, t, o, F, block, vec4, s);
+    case 13: return launch<13>(x, w, p, q, t, o, F, block, vec4, s);
+    default: return launch<14>(x, w, p, q, t, o, F, block, vec4, s);
   }
 }

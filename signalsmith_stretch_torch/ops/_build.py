@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY = {
     "interp": ("sst_interp_multi", [_P] * 4 + [_I] * 6 + [_P]),
-    "sweep": ("sst_sweep", [_P] * 5 + [_I] * 5 + [_P]),
+    "sweep": ("sst_sweep", [_P] * 6 + [_I] * 7 + [_P]),
     "scan": ("sst_iir", [_P] * 4 + [_I, _I, ctypes.c_float, _I, _P]),
     "dft": ("sst_dft", [_P] * 6 + [_I] * 4 + [_P]),
     "decay": ("sst_decay", [_P] * 5 + [_I] * 4 + [_P]),

@@ -9,9 +9,10 @@ engine layers as static arithmetic.
   analysis:   S_b = sum_n  w[n] x[n] e^{-2πi n (b+0.5)/N},  b < N/2
   synthesis:  y[n] = 2/N * Re[ sum_b S_b e^{+2πi n (b+0.5)/N} ] * w[n]
 
-On the card the analysis runs the two-stage DFT kernel (ops/dft.py,
-csrc/dft.cu) built from `_dft_mats`; its plain version, `analyze_plain`, is
-torch.fft (cuFFT on the card).  The synthesis is torch.fft on every device.
+On the card the analysis runs kernel D (ops/dft.py, csrc/dft.cu), one
+half-length complex FFT per frame with the window, the pair packing and the
+half-bin twist fused in; its plain version, `analyze_plain`, is torch.fft
+(cuFFT on the card).  The synthesis is torch.fft on every device.
 """
 from __future__ import annotations
 
@@ -54,34 +55,6 @@ class StftBasis:
     @classmethod
     def for_config(cls, cfg: StretchConfig) -> "StftBasis":
         return cls._cached(cfg.block_samples, cfg.interval_samples)
-
-
-@functools.lru_cache(maxsize=None)
-def _dft_mats(fft_samples: int):
-    """Constants for the two-stage Cooley-Tukey DFT of the modified
-    transform.  n = n1*N2 + n2, b = k1 + N1*k2 with k2 < N2/2 (upper half of
-    the spectrum is the conjugate mirror and never materialized).
-
-    The modified transform's pre-twist e^{-i pi n / N} is separable
-    (t1[n1] * t2[n2]); it is folded into the stage-1 matrix (t1) and the
-    twiddle (t2), so the forward stage 1 consumes the REAL windowed signal
-    directly.  Only the forward constants, the ones kernel D reads: the
-    synthesis stays on torch.fft."""
-    N = fft_samples
-    log2 = N.bit_length() - 1
-    N1 = 1 << (log2 // 2)
-    N2 = N // N1
-    k1 = np.arange(N1)
-    n1 = np.arange(N1)
-    n2 = np.arange(N2)
-    k2 = np.arange(N2 // 2)
-    t1 = np.exp(-1j * np.pi * n1 * N2 / N)                      # [N1]
-    t2 = np.exp(-1j * np.pi * n2 / N)                           # [N2]
-    dft1 = np.exp(-2j * np.pi * np.outer(k1, n1) / N1) * t1     # [K1, N1]
-    tw = np.exp(-2j * np.pi * np.outer(k1, n2) / N) * t2        # [K1, N2]
-    dft2 = np.exp(-2j * np.pi * np.outer(n2, k2) / N2)          # [N2, K2]
-    c64 = lambda m: m.astype(np.complex64)
-    return N1, N2, c64(dft1), c64(tw), c64(dft2)
 
 
 def analyze(frames: torch.Tensor, basis: StftBasis,

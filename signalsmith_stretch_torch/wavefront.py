@@ -9,12 +9,14 @@ the planner's coefficients (planner.py) the main-prediction vote sum is
 for the max-energy channel, whose output the other channels are then
 phase-locked to.  On the diagonal t = b + k*(LV+1) every dependency lies on
 diagonals t-1 and t-LV, so a clip takes B + (nB-1)*(LV+1) sequential steps.
-`sweep` launches the kernel on a CUDA tensor; on a CPU tensor it runs
-`sweep_plain`, a loop over diagonals vectorised over clips and rows in
-explicit float32 real/imag arithmetic with the kernel's operation order.
+`sweep` launches the kernel on a CUDA tensor, one CTA per clip on the
+schedule of `sweep_schedule`; on a CPU tensor it runs `sweep_plain`, a loop
+over diagonals vectorised over clips and rows in explicit float32 real/imag
+arithmetic with the kernel's operation order.
 """
 from __future__ import annotations
 
+import ctypes
 from collections import deque
 
 import torch
@@ -26,6 +28,23 @@ from .ops import _build
 from .planner import SweepInputs, plan_spectral
 
 launches = 0          # kernel launches of sweep
+SWEEP_MAX_THREADS = 512   # threads of one CTA (csrc/sweep.cu MAX_THREADS)
+SWEEP_MAX_CHANNELS = 16   # channels the kernel takes (csrc/sweep.cu MAX_CH)
+
+
+def sweep_schedule(nB: int, B: int, longv: int,
+                   max_threads: int = SWEEP_MAX_THREADS):
+    """The kernel's schedule for one clip of nB rows of B bins: (threads,
+    sigma, diagonals).  Thread j walks rows j, j+threads, ...; cell (k, b)
+    runs on diagonal b + k*sigma.  sigma = LV+1, the tightest step the
+    recursion allows, unless the clip has more rows than threads: then
+    sigma is raised until threads*sigma >= B, so that a thread finishes one
+    row before its next row starts."""
+    threads = min(-(-nB // 32) * 32, max_threads)
+    sigma = longv + 1
+    if nB > threads:
+        sigma = max(sigma, -(-B // threads))
+    return threads, sigma, B + (nB - 1) * sigma
 
 
 def _make_output_pair(pe, pir, pii, phr, phi):
@@ -127,26 +146,46 @@ def sweep(inputs: SweepInputs, longv: int) -> torch.Tensor:
         return sweep_plain(inputs, longv)
     batch, nB, B = inputs.a1.shape
     ch = len(inputs.pi)
-    coef = torch.stack([inputs.a1, inputs.a2, inputs.d1, inputs.d2], 1)
-    mc = inputs.mc.to(torch.int32).contiguous()
-    pe = torch.stack(inputs.pe, 1)
-    pi = torch.stack(inputs.pi, 1)
-    _build.require_cuda(coef, mc, pe, pi)
-    if (coef.dtype != torch.complex64 or pi.dtype != torch.complex64
-            or pe.dtype != torch.float32):
+    if len(inputs.pe) != ch or not 1 <= ch <= SWEEP_MAX_CHANNELS:
+        raise ValueError(f"sweep: {ch} channels of inputs and "
+                         f"{len(inputs.pe)} of energies, the kernel takes 1 "
+                         f"to {SWEEP_MAX_CHANNELS}")
+    # the planes as the planner left them: any clip and row strides, unit
+    # bin stride
+    planes = [p if p.stride(-1) == 1 else p.contiguous() for p in
+              [inputs.a1, inputs.a2, inputs.d1, inputs.d2, inputs.mc,
+               *inputs.pe, *inputs.pi]]
+    dev = planes[0].device
+    if any(p.device != dev for p in planes):
+        raise ValueError("sweep: inputs on more than one device")
+    if (any(z.dtype != torch.complex64 for z in planes[:4] + planes[5 + ch:])
+            or any(p.dtype != torch.float32 for p in planes[5:5 + ch])
+            or planes[4].dtype != torch.int32):
         raise TypeError("sweep: complex64 coefficients and inputs, float32 "
-                        "energies expected")
-    if (coef.shape != (batch, 4, nB, B) or mc.shape != (batch, nB, B)
-            or pe.shape != (batch, ch, nB, B) or pi.shape != pe.shape):
+                        "energies and int32 channels expected")
+    if any(p.shape != (batch, nB, B) for p in planes):
         raise ValueError("sweep: inconsistent plane shapes")
     if longv < 1:
         raise ValueError(f"sweep: long vertical step {longv} < 1")
-    out = torch.empty((batch, ch, nB, B), dtype=torch.complex64,
-                      device=coef.device)
+    threads, sigma, _ = sweep_schedule(nB, B, longv)
+    out = torch.empty((batch, ch, nB, B), dtype=torch.complex64, device=dev)
+    # scratch: the inputs and the outputs skewed within groups of 32 rows,
+    # [batch][ceil(nB/32)][B + 31*sigma][words][32]
+    groups, diags = -(-nB // 32), B + 31 * sigma
+    stage = torch.empty((batch, groups, diags, 9 + 3 * ch, 32),
+                        dtype=torch.float32, device=dev)
+    skewed = torch.empty((batch, groups, diags, ch, 32),
+                         dtype=torch.complex64, device=dev)
+    n = len(planes)
+    ptrs = (ctypes.c_void_p * n)(*[p.data_ptr() for p in planes])
+    clip_strides = (ctypes.c_longlong * n)(*[p.stride(0) for p in planes])
+    row_strides = (ctypes.c_int * n)(*[p.stride(1) for p in planes])
     rc = _build.entry("sweep")(
-        coef.data_ptr(), mc.data_ptr(), pe.data_ptr(), pi.data_ptr(),
-        out.data_ptr(), batch, nB, B, ch, longv,
-        torch.cuda.current_stream(coef.device).cuda_stream)
+        ctypes.cast(ptrs, ctypes.c_void_p),
+        ctypes.cast(clip_strides, ctypes.c_void_p),
+        ctypes.cast(row_strides, ctypes.c_void_p), out.data_ptr(),
+        stage.data_ptr(), skewed.data_ptr(), batch, nB, B, ch, longv,
+        threads, sigma, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "sst_sweep")
     launches += 1
     return out

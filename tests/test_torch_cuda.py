@@ -9,9 +9,10 @@ without JAX run them without the suite's conftest:
 Tolerances.  Kernels A, B, C, E and F: bit equality.  They are built with
 --fmad=false and IEEE division and square root, so they round at the same
 points as the plain versions, which are written as separate float32
-PyTorch ops.  Kernel D, the analysis DFT, is a two-stage DFT held to its
-plain version (cuFFT) at 3e-6 of the spectrum's peak magnitude, the JAX
-package's gate between its matmul DFT and its FFT (tests/test_stft.py:79).
+PyTorch ops.  Kernel D, the analysis DFT, is one half-length complex FFT
+per frame (a mixed-radix Stockham FFT in shared memory) held to its plain
+version (cuFFT) at 3e-6 of the spectrum's peak magnitude, the JAX package's
+gate between its matmul DFT and its FFT (tests/test_stft.py:79).
 Renders (`chip_smoke.render_vs_plain`, the gate of chip_smoke.py): the
 spectral stage through A, B, C, E and F on the spectra of one analysis
 through D is bit-equal to its plain version; the whole render goes through
@@ -76,30 +77,52 @@ def test_iir_kernel_matches_plain(dev, backward):
     assert torch.equal(y, yp) and torch.equal(fin, finp)
 
 
-def _sweep_inputs(rng, batch, nB, B, ch, dev):
-    def cplx(scale=1.0):
-        z = (rng.standard_normal((batch, nB, B))
-             + 1j * rng.standard_normal((batch, nB, B))) * scale
+def _sweep_inputs(rng, batch, nB, B, ch, dev, views=False):
+    """Random sweep inputs; with views, the energies and inputs are channel
+    views of [batch, nB, ch, B] tensors, as the unmapped planner leaves
+    them (row stride ch*B)."""
+    def cplx(scale=1.0, shape=(batch, nB, B)):
+        z = (rng.standard_normal(shape)
+             + 1j * rng.standard_normal(shape)) * scale
         return _t(z.astype(np.complex64), dev)
 
+    if views:
+        pe = _t(rng.uniform(0, 2, (batch, nB, ch, B)).astype(np.float32), dev)
+        pi = cplx(shape=(batch, nB, ch, B))
+        pe, pi = pe.unbind(2), pi.unbind(2)
+    else:
+        pe = tuple(_t(rng.uniform(0, 2, (batch, nB, B)).astype(np.float32),
+                      dev) for _ in range(ch))
+        pi = tuple(cplx() for _ in range(ch))
     return SweepInputs(
         a1=cplx(0.5), a2=cplx(0.5), d1=cplx(0.5), d2=cplx(0.5),
         mc=_t(rng.integers(0, ch, (batch, nB, B)).astype(np.int32), dev),
-        pe=tuple(_t(rng.uniform(0, 2, (batch, nB, B)).astype(np.float32),
-                    dev) for _ in range(ch)),
-        pi=tuple(cplx() for _ in range(ch)))
+        pe=tuple(pe), pi=tuple(pi))
 
 
-@pytest.mark.parametrize("nB,B", [(70, 96), (2200, 24)],
-                         ids=["shared_ring", "global_fallback"])
-def test_sweep_kernel_matches_plain(dev, nB, B):
-    """The second shape's ring (2200 rows x 2 channels x 7 diagonals) does
+@pytest.mark.parametrize("nB,B,longv,ch,views", [
+    (70, 96, 6, 2, False), (2200, 24, 6, 2, False), (70, 96, 4, 2, False),
+    (70, 96, 5, 2, False), (1100, 24, 6, 2, False), (600, 3700, 6, 2, False),
+    (70, 96, 6, 1, False), (70, 96, 6, 3, False), (20, 400, 6, 2, False),
+    (70, 96, 6, 2, True)],
+    ids=["shared_ring", "global_fallback", "lv4", "lv5", "rows_loop",
+         "sigma_raised", "mono", "three_ch", "rows_past_period",
+         "channel_views"])
+def test_sweep_kernel_matches_plain(dev, nB, B, longv, ch, views):
+    """global_fallback's ring (2200 rows x 2 channels x 7 diagonals) does
     not fit in shared memory, so the kernel reads its outputs back from the
-    output array instead."""
+    output array instead.  LV 4 and 5 are the cheaper preset's (48 and
+    44.1 kHz).  Past 512 rows, rows loop over the CTA's threads
+    (global_fallback, rows_loop); at 3700 bins the schedule step rises to 8
+    (wavefront.sweep_schedule).  Three channels take the kernel's path that
+    loads channel inputs at the cell.  rows_past_period: one row per thread
+    (32 threads) and rows longer than threads*sigma, as at the render's
+    335 x 4096 shapes.  channel_views: energies and inputs read through
+    their clip and row strides."""
     rng = np.random.default_rng(2)
-    inputs = _sweep_inputs(rng, 2, nB, B, 2, dev)
-    got = wavefront.sweep(inputs, 6)
-    ref = wavefront.sweep_plain(inputs, 6)
+    inputs = _sweep_inputs(rng, 2, nB, B, ch, dev, views)
+    got = wavefront.sweep(inputs, longv)
+    ref = wavefront.sweep_plain(inputs, longv)
     assert torch.equal(got, ref)
 
 
@@ -121,21 +144,25 @@ def test_render_kernels_match_plain(dev, kw):
     assert ok, gate
 
 
-@pytest.mark.parametrize("preset,rate", [("preset_default", 48000),
-                                         ("preset_cheaper", 44100),
-                                         ("preset_default", 8000)])
+@pytest.mark.parametrize("preset,rate", [
+    ("preset_default", 48000), ("preset_cheaper", 44100),
+    ("preset_default", 8000), ("preset_default", 11025),
+    ("preset_default", 22050), ("preset_default", 96000)])
 def test_dft_kernel_matches_plain(dev, preset, rate):
-    """Block 5760 (N 8192, 45 rows of 128), 4410 (35 rows, the last one
-    partly past the block) and 960 (N 1024, N2 32)."""
+    """Every FFT size the kernel is built for: N 8192 (blocks 5760 and 4410,
+    a block that leaves part of the frame empty), 1024 (960), 2048 (1323,
+    odd: sample pairs read one by one), 4096 (2646) and 16384 (11520).  The
+    frames are also analysed from a view one sample off 8-byte alignment."""
     basis = stft.StftBasis.for_config(getattr(StretchConfig, preset)(2, rate))
+    block = basis.block_samples
     rng = np.random.default_rng(5)
-    frames = _t(rng.standard_normal((3, 37, basis.block_samples))
-                .astype(np.float32), dev)
-    got = dft.analyze(frames, basis)
-    ref = stft.analyze_plain(frames, basis)
-    assert got.shape == ref.shape and got.dtype == torch.complex64
-    err = (got - ref).abs().max() / ref.abs().max()
-    assert float(err) <= 3e-6, float(err)
+    flat = _t(rng.standard_normal(3 * 37 * block + 1).astype(np.float32), dev)
+    for frames in (flat[:-1].view(3, 37, block), flat[1:].view(3, 37, block)):
+        got = dft.analyze(frames, basis)
+        ref = stft.analyze_plain(frames, basis)
+        assert got.shape == ref.shape and got.dtype == torch.complex64
+        err = (got - ref).abs().max() / ref.abs().max()
+        assert float(err) <= 3e-6, float(err)
 
 
 @pytest.mark.parametrize("backward", [False, True])

@@ -144,3 +144,115 @@ def test_sweep_on_cpu_is_plain_and_per_clip(stereo_signal):
     assert wavefront.launches == 0
     assert torch.equal(out[:1], wavefront.sweep_plain(one, longv))
     assert torch.equal(out[1:], wavefront.sweep_plain(two, longv))
+
+
+def _random_inputs(rng, batch, nB, B, ch):
+    def cplx(scale=1.0):
+        z = (rng.standard_normal((batch, nB, B))
+             + 1j * rng.standard_normal((batch, nB, B))) * scale
+        return torch.as_tensor(z.astype(np.complex64))
+
+    return planner.SweepInputs(
+        a1=cplx(0.5), a2=cplx(0.5), d1=cplx(0.5), d2=cplx(0.5),
+        mc=torch.as_tensor(rng.integers(0, ch, (batch, nB, B))),
+        pe=tuple(torch.as_tensor(rng.uniform(0, 2, (batch, nB, B)).astype(
+            np.float32)) for _ in range(ch)),
+        pi=tuple(cplx() for _ in range(ch)))
+
+
+def kernel_schedule_model(inp, longv, max_threads, ring):
+    """The card's sweep kernel (csrc/sweep.cu) as it walks: thread j's cell
+    on each diagonal from its (row, bin) walker, the ring of sigma diagonal
+    slots indexed [slot][ch][row] (or, with ring False, reads of the output
+    array), the same float32 operations vectorised over the live threads."""
+    batch, nB, B = inp.a1.shape
+    ch = len(inp.pi)
+    T, sigma, D = wavefront.sweep_schedule(nB, B, longv, max_threads)
+    assert sigma >= longv + 1 and (nB <= T or T * sigma >= B)
+    pe, pi = torch.stack(inp.pe, 1), torch.stack(inp.pi, 1)
+    out_r = torch.zeros((batch, ch, nB, B))
+    out_i = torch.zeros_like(out_r)
+    ring_r = torch.zeros((sigma, batch, ch, nB))
+    ring_i = torch.zeros_like(ring_r)
+    k = torch.arange(T)
+    rel = -k * sigma
+    bi = torch.arange(batch)[:, None]
+    chans = torch.arange(ch)[None, :, None]
+    for t in range(D):
+        live = (rel >= 0) & (rel < B) & (k < nB)
+        kk, bb = k[live], rel[live]
+        if kk.numel():
+            m = inp.mc[:, kk, bb].long()                  # [batch, n]
+
+            def at(row, slot, col, ok):
+                rowc, colc = row.clamp(0, nB - 1), col.clamp(0, B - 1)
+                if ring:
+                    r, i = ring_r[slot][bi, m, rowc], ring_i[slot][bi, m, rowc]
+                else:
+                    r, i = out_r[bi, m, rowc, colc], out_i[bi, m, rowc, colc]
+                return torch.where(ok, r, 0.0), torch.where(ok, i, 0.0)
+
+            down1 = at(kk, (t - 1) % sigma, bb - 1, bb >= 1)
+            downl = at(kk, (t - longv) % sigma, bb - longv, bb >= longv)
+            up1 = at(kk - 1, (t + 1) % sigma, bb + 1, (kk >= 1) & (bb + 1 < B))
+            upl = at(kk - 1, (t + longv) % sigma, bb + longv,
+                     (kk >= 1) & (bb + longv < B))
+
+            def coef(z):
+                z = z[:, kk, bb]
+                return z.real, z.imag
+
+            v1 = wavefront._cmul(*coef(inp.d1), *down1)
+            v2 = wavefront._cmul(*coef(inp.d2), *downl)
+            v3 = wavefront._cmul(*coef(inp.a1), *up1)
+            v4 = wavefront._cmul(*coef(inp.a2), *upl)
+            phr = ((v1[0] + v2[0]) + v3[0]) + v4[0]
+            phi = ((v1[1] + v2[1]) + v3[1]) + v4[1]
+            pic, pec = pi[:, :, kk, bb], pe[:, :, kk, bb]   # [batch, ch, n]
+            pim = pic.gather(1, m[:, None])[:, 0]
+            pem = pec.gather(1, m[:, None])[:, 0]
+            lr, li = wavefront._make_output_pair(pem, pim.real, pim.imag,
+                                                 phr, phi)
+            ctr = pic.real * pim.real[:, None] + pic.imag * pim.imag[:, None]
+            cti = pic.imag * pim.real[:, None] - pic.real * pim.imag[:, None]
+            tr, ti = wavefront._cmul(lr[:, None], li[:, None], ctr, cti)
+            kr, ki = wavefront._make_output_pair(pec, pic.real, pic.imag,
+                                                 tr, ti)
+            lead = chans == m[:, None]
+            o_r = torch.where(lead, lr[:, None], kr)
+            o_i = torch.where(lead, li[:, None], ki)
+            out_r[:, :, kk, bb], out_i[:, :, kk, bb] = o_r, o_i
+            ring_r[t % sigma][:, :, kk], ring_i[t % sigma][:, :, kk] = o_r, o_i
+        rel = rel + 1
+        wrap = (rel == T * sigma) & (nB > T)
+        rel = torch.where(wrap, 0, rel)
+        k = torch.where(wrap, k + T, k)
+    return torch.complex(out_r, out_i)
+
+
+@pytest.mark.parametrize("nB,B,longv,ch,max_threads,ring", [
+    (20, 40, 6, 2, 512, True),      # one row per thread, sigma = LV+1
+    (20, 300, 6, 2, 512, True),     # the same, rows longer than T*sigma
+    (70, 30, 4, 2, 32, True),       # rows loop over threads, sigma = LV+1
+    (50, 200, 5, 2, 32, True),      # sigma raised to ceil(B/threads) = 7
+    (50, 200, 5, 2, 32, False),     # the same, reads from the outputs
+    (40, 24, 6, 3, 32, True),       # three channels, loaded at the cell
+], ids=["one_row", "one_row_long", "rows_loop", "sigma_raised", "read_back", "three_ch"])
+def test_kernel_schedule_model_matches_plain(nB, B, longv, ch, max_threads,
+                                             ring):
+    """The kernel's walk, ring slots and read-back, modelled on the CPU, are
+    bit-equal to the plain sweep: every cell reads the outputs it depends on
+    after they were written and before their slot is reused."""
+    inp = _random_inputs(np.random.default_rng(9), 2, nB, B, ch)
+    got = kernel_schedule_model(inp, longv, max_threads, ring)
+    assert torch.equal(got, wavefront.sweep_plain(inp, longv))
+
+
+def test_sweep_schedule():
+    """The render's shapes: 335 rows of 4096 bins at LV 6 take 352 threads
+    and 6434 diagonals; a clip past 512 rows loops rows over 512 threads,
+    with sigma raised to 8 at 4096 bins."""
+    assert wavefront.sweep_schedule(335, 4096, 6) == (352, 7, 6434)
+    assert wavefront.sweep_schedule(2200, 24, 6) == (512, 7, 24 + 2199 * 7)
+    assert wavefront.sweep_schedule(600, 4096, 6) == (512, 8, 4096 + 599 * 8)
+    assert wavefront.sweep_schedule(600, 4096, 6)[0] == wavefront.SWEEP_MAX_THREADS
