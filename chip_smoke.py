@@ -13,9 +13,13 @@ Phases, in order; any failure exits non-zero before the last line:
      analysis DFT (D) on the 1.25x render's frames, within 3e-6 of the
      spectrum's peak of the plain analysis (cuFFT); on the pitch+12
      configuration's planner inputs the interp kernel (A) in lerp and taps
-     mode, the slew scan (C) forward and backward and the diagonal sweep
-     (B); on the auto-base formant configuration's metric the decay scans
-     (E) and the top-3 scan (F); every kernel but D bit-equal;
+     mode, the slew scan (C: the smoothing's four passes in one launch, and
+     one pass each way) and the diagonal sweep (B); on the auto-base formant
+     configuration's metric the decay scans (E: the envelope's eight passes
+     in one launch, and each single pass) and the top-3 scan (F); every
+     kernel but D bit-equal, C and E in their outputs and final values.
+     C, E and F are also timed on one row, where one lane runs the whole
+     chain: the card's own serial floor for that work (`chain_ms`);
   4. renders of stereo48k_default_1.25x, stereo48k_pitch+12_tonality8k,
      formant_vocal_shift (base 220 Hz) and formant_vocal_shift_auto (base
      estimated per block) at batch 8 x 10 s stereo 48 kHz through
@@ -26,7 +30,9 @@ Phases, in order; any failure exits non-zero before the last line:
      D bit-equal, and the whole render bit-equal, else within the
      chaos-relative gate (D rounds otherwise than cuFFT);
   5. the kernel table as one JSON line, the nvidia-smi line, and the device
-     line {"ok": true, "device": {...}} last.
+     line {"ok": true, "device": {...}} last.  A kernel's `ms` is the median
+     of 20 launches, each alone between CUDA events (5 for B); `ms_b2b` the
+     mean of 20 issued back to back, which hides the host's launch time.
 
 There is no CPU fallback: without CUDA the script fails.
 """
@@ -66,6 +72,8 @@ PEAK_F32 = 67e12
 DEVICE = "cuda"
 # timed repeats: kernels (CUDA events), plain versions, whole renders
 KERNEL_REPS, PLAIN_REPS, RENDER_REPS = 20, 2, 3
+# the planner's slew smoothing: four passes, down then up, twice
+SMOOTHING = (True, False, True, False)
 
 # the kernels: (name, source, the TPU code it replaces)
 KERNELS = (
@@ -124,7 +132,8 @@ def smi_line():
 
 
 def cuda_ms(fn, reps, warm=1):
-    """Median device time of fn() in ms (CUDA events around each call)."""
+    """Median device time of fn() in ms (CUDA events around each call, one
+    call at a time, so it also counts the host's time to launch it)."""
     import torch
     for _ in range(warm):
         fn()
@@ -139,6 +148,23 @@ def cuda_ms(fn, reps, warm=1):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def cuda_ms_b2b(fn, reps):
+    """Mean device time of fn() in ms over `reps` calls issued back to back
+    between two CUDA events, after one call: the host's launch time hides
+    behind the previous call's work."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def bound_ms(nbytes, flops):
@@ -258,32 +284,16 @@ def check_kernels():
     B = pos_sets[0][0].shape[1]
     nout = sum(ns for _, ns, _ in pos_sets)
     ms = cuda_ms(lambda: interp.interp_multi(planes, pos_sets), KERNEL_REPS)
+    b2b = cuda_ms_b2b(lambda: interp.interp_multi(planes, pos_sets),
+                      KERNEL_REPS)
     plain = cuda_ms(lambda: interp.interp_multi_plain(planes, pos_sets), 3)
     nbytes = 4 * (rows * n * W0 + rows * len(pos_sets) * B + rows * nout * B)
     flops = 3 * rows * nout * B + 2 * rows * len(pos_sets) * B
-    entries["interp_multi"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+    entries["interp_multi"] = dict(max_abs_err=err, ms=ms, ms_b2b=b2b,
+                                   plain_ms=plain,
                                    bound=bound_ms(nbytes, flops))
 
-    # --- C: the slew scan, backward and forward ---------------------------
-    x = dbg["energy"]
-    init = torch.zeros(x.shape[0], dtype=torch.float32, device=DEVICE)
-    slew = plan.consts.slew
-    err = 0.0
-    for backward in (True, False):
-        y, fin = scan_ops.iir(x, init, slew, backward=backward)
-        yp, finp = scan_ops.iir_plain(x, init, slew, backward=backward)
-        err = max(err, max_abs(y, yp), max_abs(fin, finp))
-        if not (torch.equal(y, yp) and torch.equal(fin, finp)):
-            raise SystemExit(f"iir (backward={backward}): kernel differs "
-                             f"from the plain version, max abs {err}")
-        print(f"C iir {'backward' if backward else 'forward'}: "
-              f"{tuple(x.shape)}: bit-equal to the plain version")
-    ms = cuda_ms(lambda: scan_ops.iir(x, init, slew), KERNEL_REPS)
-    plain = cuda_ms(lambda: scan_ops.iir_plain(x, init, slew), PLAIN_REPS)
-    R, Bx = x.shape
-    entries["iir"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                          bound=bound_ms(4 * (2 * R * Bx + 2 * R),
-                                         3 * R * Bx))
+    entries["iir"] = check_slew_scan(dbg["energy"], plan.consts.slew)
 
     # --- B: the diagonal sweep --------------------------------------------
     longv = plan.consts.long_vertical_step
@@ -309,6 +319,8 @@ def check_kernels():
           f"diagonals: bit-equal to the plain version (plain sweep "
           f"{plain / 1e3:.1f} s)")
     ms = cuda_ms(lambda: wavefront.sweep(inputs, longv), KERNEL_REPS // 4)
+    b2b = cuda_ms_b2b(lambda: wavefront.sweep(inputs, longv),
+                      KERNEL_REPS // 4)
     cells = batch_ * nB * Bs
     # per cell: a1, a2, d1, d2 (complex), mc, pe and pi per channel in, the
     # outputs per channel out; ~62 flops for two channels
@@ -318,8 +330,8 @@ def check_kernels():
     print(f"B sweep: {1e6 * ms / diagonals:.1f} ns a diagonal over "
           f"{diagonals} diagonals ({ms:.3f} ms); bound {bound[0]:.4f} ms "
           f"({bound[1]})")
-    entries["sweep"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                            bound=bound)
+    entries["sweep"] = dict(max_abs_err=err, ms=ms, ms_b2b=b2b,
+                            plain_ms=plain, bound=bound)
     del inputs, dbg, spectra, prev, audio
     torch.cuda.empty_cache()
     entries["dft"] = check_dft()
@@ -327,11 +339,55 @@ def check_kernels():
     for name, e in entries.items():
         lib = e.get("library_ms")
         print(f"{name}: max abs difference {e['max_abs_err']:g}, kernel "
-              f"{e['ms']:.3f} ms, plain {e['plain_ms']:.1f} ms, bound "
+              f"{e['ms']:.4f} ms a launch alone ({e['ms_b2b']:.4f} ms back "
+              f"to back), plain {e['plain_ms']:.1f} ms, bound "
               f"{e['bound'][0]:.4f} ms ({e['bound'][1]}), library: "
               + (f"{lib:.3f} ms" if lib is not None else
                  "none (no single PyTorch call computes it)"))
     return entries
+
+
+def check_slew_scan(x, slew):
+    """C against its plain passes on the pitch+12 render's energy x: the
+    smoothing's four passes in one launch and one pass each way, y and the
+    final value bit-equal; timed as the four passes, one pass, and the four
+    passes on one row."""
+    import torch
+    from signalsmith_stretch_torch.ops import scan_ops
+    R, Bx = x.shape
+    init = torch.zeros(R, dtype=torch.float32, device=DEVICE)
+    err = 0.0
+    for what, dirs in (("smoothing chain", SMOOTHING),
+                       ("backward", (True,)), ("forward", (False,))):
+        y, fin = scan_ops.iir_chain(x, init, slew, dirs)
+        yp, finp = scan_ops.iir_chain_plain(x, init, slew, dirs)
+        err = max(err, max_abs(y, yp), max_abs(fin, finp))
+        if not (torch.equal(y, yp) and torch.equal(fin, finp)):
+            raise SystemExit(f"iir_chain ({what}): kernel differs from the "
+                             f"plain version, max abs {err}")
+        print(f"C iir_chain {what} ({len(dirs)} passes): {tuple(x.shape)}: "
+              f"y and final bit-equal to the plain version")
+    def chain(rows):
+        return lambda: scan_ops.iir_chain(x[:rows], init[:rows], slew,
+                                          SMOOTHING)
+    ms, b2b = cuda_ms(chain(R), KERNEL_REPS), cuda_ms_b2b(chain(R),
+                                                          KERNEL_REPS)
+    floor, floor_b2b = cuda_ms(chain(1), KERNEL_REPS), cuda_ms_b2b(
+        chain(1), KERNEL_REPS)
+    one = cuda_ms(lambda: scan_ops.iir(x, init, slew), KERNEL_REPS)
+    plain = cuda_ms(lambda: scan_ops.iir_chain_plain(x, init, slew,
+                                                     SMOOTHING), PLAIN_REPS)
+    # the chain reads the plane once and writes it once
+    bound = bound_ms(4 * (2 * R * Bx + 2 * R), 3 * len(SMOOTHING) * R * Bx)
+    print(f"C iir_chain: {len(SMOOTHING)} passes in {ms:.4f} ms a launch "
+          f"alone, {b2b:.4f} ms back to back "
+          f"({1e3 * b2b / len(SMOOTHING):.1f} us a pass); one pass "
+          f"{one:.4f} ms; one row (the serial floor) {floor:.4f} ms alone, "
+          f"{floor_b2b:.4f} ms back to back; bound {bound[0]:.4f} ms "
+          f"({bound[1]}), {1e-6 * 4 * 2 * R * Bx * len(SMOOTHING) / b2b:.0f} "
+          f"GB/s of pass traffic back to back")
+    return dict(max_abs_err=err, ms=ms, ms_b2b=b2b, plain_ms=plain,
+                bound=bound, chain_ms=floor)
 
 
 def analysis_frames(cfg):
@@ -376,6 +432,7 @@ def check_dft():
           f"max abs difference {err:g} = {err / peak:.3g} of the peak "
           f"(tolerance {DFT_TOL:g})")
     ms = cuda_ms(lambda: dft.analyze(frames, basis), KERNEL_REPS)
+    b2b = cuda_ms_b2b(lambda: dft.analyze(frames, basis), KERNEL_REPS)
     plain = cuda_ms(lambda: stft.analyze_plain(frames, basis), KERNEL_REPS)
     z = F.pad(frames * torch.as_tensor(basis.window, device=DEVICE),
               (0, basis.fft_samples - block)) * torch.as_tensor(
@@ -400,13 +457,14 @@ def check_dft():
           f"{dft.RADICES[N.bit_length() - 1]}: {algo_flops / 1e9:.2f} GFLOP "
           f"of its own, {1e3 * algo_flops / PEAK_F32:.3f} ms at the float32 "
           f"peak, {algo_flops / ms / 1e9:.1f} TFLOP/s achieved")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound=bound)
+    return dict(max_abs_err=err, ms=ms, ms_b2b=b2b, plain_ms=plain,
+                library_ms=lib, bound=bound)
 
 
 def check_formant_scans():
-    """E (the four decay passes) and F (the top-3 scan) against their plain
-    loops, on the auto-base formant render's metric and decay."""
+    """E (the envelope's eight decay passes in one launch, and each single
+    pass) and F (the top-3 scan) against their plain loops, on the
+    auto-base formant render's metric and decay."""
     import torch
     from signalsmith_stretch_torch import engine, planner, spectral
     from signalsmith_stretch_torch.ops import scan_ops
@@ -421,27 +479,47 @@ def check_formant_scans():
     x = dbg["metric"]
     R, B = x.shape
     decay = 1 - 1 / (dbg["freq_estimate"] * 0.5 + 1)
+    inv_decay = 1 / decay
     init = torch.zeros(R, dtype=torch.float32, device=DEVICE)
+
+    def envelope(d, inv):     # the planner's eight passes
+        return [(c, m, b) for c, m in ((d, False), (inv, True))
+                for _ in range(2) for b in (True, False)]
+
+    passes = envelope(decay, inv_decay)
+    cases = [("envelope chain", passes)] + [
+        (f"decay_{'min' if m else 'max'}_{'backward' if b else 'forward'}",
+         [(c, m, b)]) for c, m, b in passes[:2] + passes[4:6]]
     err = 0.0
-    for is_min, coef in ((False, decay), (True, 1 / decay)):
-        for backward in (True, False):
-            y, fin = scan_ops.decay(x, init, coef, is_min, backward)
-            yp, finp = scan_ops.decay_plain(x, init, coef, is_min, backward)
-            err = max(err, max_abs(y, yp), max_abs(fin, finp))
-            what = (f"decay_{'min' if is_min else 'max'}_"
-                    f"{'backward' if backward else 'forward'}")
-            if not (torch.equal(y, yp) and torch.equal(fin, finp)):
-                raise SystemExit(f"{what}: kernel differs from the plain "
-                                 f"version, max abs {err}")
-            print(f"E {what}: {tuple(x.shape)}: bit-equal to the plain "
-                  f"version")
-    entries = {"decay": dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: scan_ops.decay(x, init, decay, False),
-                   KERNEL_REPS),
-        plain_ms=cuda_ms(lambda: scan_ops.decay_plain(x, init, decay, False),
-                         PLAIN_REPS),
-        bound=bound_ms(4 * (2 * R * B + 3 * R), 2 * R * B))}
+    for what, ps in cases:
+        y, fin = scan_ops.decay_chain(x, init, ps)
+        yp, finp = scan_ops.decay_chain_plain(x, init, ps)
+        err = max(err, max_abs(y, yp), max_abs(fin, finp))
+        if not (torch.equal(y, yp) and torch.equal(fin, finp)):
+            raise SystemExit(f"{what}: kernel differs from the plain "
+                             f"version, max abs {err}")
+        print(f"E {what} ({len(ps)} passes): {tuple(x.shape)}: y and final "
+              f"bit-equal to the plain version")
+    def chain(rows):
+        ps = envelope(decay[:rows], inv_decay[:rows])
+        return lambda: scan_ops.decay_chain(x[:rows], init[:rows], ps)
+    ms, b2b = cuda_ms(chain(R), KERNEL_REPS), cuda_ms_b2b(chain(R),
+                                                          KERNEL_REPS)
+    floor, floor_b2b = cuda_ms(chain(1), KERNEL_REPS), cuda_ms_b2b(
+        chain(1), KERNEL_REPS)
+    one = cuda_ms(lambda: scan_ops.decay(x, init, decay, False), KERNEL_REPS)
+    plain = cuda_ms(lambda: scan_ops.decay_chain_plain(x, init, passes),
+                    PLAIN_REPS)
+    bound = bound_ms(4 * (2 * R * B + 4 * R), 2 * len(passes) * R * B)
+    print(f"E decay_chain: {len(passes)} passes in {ms:.4f} ms a launch "
+          f"alone, {b2b:.4f} ms back to back "
+          f"({1e3 * b2b / len(passes):.1f} us a pass); one pass {one:.4f} "
+          f"ms; one row (the serial floor) {floor:.4f} ms alone, "
+          f"{floor_b2b:.4f} ms back to back; bound {bound[0]:.4f} ms "
+          f"({bound[1]}), {1e-6 * 4 * 2 * R * B * len(passes) / b2b:.0f} "
+          f"GB/s of pass traffic back to back")
+    entries = {"decay": dict(max_abs_err=err, ms=ms, ms_b2b=b2b,
+                             plain_ms=plain, bound=bound, chain_ms=floor)}
 
     got = scan_ops.top3_local_maxima(x)
     ref = spectral._top3_local_maxima(x)
@@ -454,9 +532,15 @@ def check_formant_scans():
     entries["top3"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: scan_ops.top3_local_maxima(x), KERNEL_REPS),
+        ms_b2b=cuda_ms_b2b(lambda: scan_ops.top3_local_maxima(x),
+                           KERNEL_REPS),
         plain_ms=cuda_ms(lambda: spectral._top3_local_maxima(x), PLAIN_REPS,
                          warm=0),
-        bound=bound_ms(4 * (R * B + 6 * R), 6 * R * B))
+        bound=bound_ms(4 * (R * B + 6 * R), 6 * R * B),
+        chain_ms=cuda_ms(lambda: scan_ops.top3_local_maxima(x[:1]),
+                         KERNEL_REPS))
+    print(f"F top3: {entries['top3']['ms']:.4f} ms, one row (the serial "
+          f"floor) {entries['top3']['chain_ms']:.4f} ms")
     del dbg, x
     torch.cuda.empty_cache()
     return entries
@@ -479,14 +563,15 @@ def reset_counters():
 
 
 def expected_launches(flags):
-    """Kernel launches of one render: D and B always; A and four slew
-    passes (C) when mapped; eight decay passes (E) for formants; with the
-    base estimated, the top-3 scan (F) and the two freqEstimate chains over
-    blocks (C)."""
+    """Kernel launches of one render: D and B always; A and the slew
+    smoothing's four passes in one launch of C when mapped; the envelope's
+    eight decay passes in one launch of E for formants; with the base
+    estimated, the top-3 scan (F) and the two freqEstimate chains over
+    blocks, stacked in one launch of C."""
     auto = flags.process_formants and flags.formant_auto
     return {"interp_multi": int(flags.mapped), "sweep": 1,
-            "iir": 4 * flags.mapped + 2 * auto, "dft": 1,
-            "decay": 8 * flags.process_formants, "top3": int(auto)}
+            "iir": int(flags.mapped) + int(auto), "dft": 1,
+            "decay": int(flags.process_formants), "top3": int(auto)}
 
 
 def stage_split(model, audio):
@@ -614,9 +699,10 @@ def main():
         table.append(dict(name=name, route="cuda", source=source,
                           replaces=replaces, launches=launches[name],
                           max_abs_err=e["max_abs_err"], ms=e["ms"],
-                          plain_ms=e["plain_ms"], bound_ms=e["bound"][0],
-                          bound_by=e["bound"][1],
-                          library_ms=e.get("library_ms")))
+                          ms_b2b=e["ms_b2b"], plain_ms=e["plain_ms"],
+                          bound_ms=e["bound"][0], bound_by=e["bound"][1],
+                          library_ms=e.get("library_ms"),
+                          chain_ms=e.get("chain_ms")))
     missing = [t["name"] for t in table if t["launches"] < 1]
     if missing:
         raise SystemExit(f"kernels never launched on the main path: {missing}")

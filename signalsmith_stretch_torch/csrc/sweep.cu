@@ -48,7 +48,6 @@
 
 #define NOISE_FLOOR 1e-15f
 #define MAX_THREADS 512   // wavefront.SWEEP_MAX_THREADS
-#define MAX_CH 16         // wavefront.SWEEP_MAX_CHANNELS
 #define PREFETCH 4        // diagonals of inputs in flight per thread
 
 // asynchronous 4-byte copy device memory -> shared memory, and its groups
@@ -92,48 +91,53 @@ struct Skew {
   }
 };
 
-// the planner's input planes, each [batch, nB, B] with unit bin stride:
+// one of the planner's input planes, [batch, nB, B] with unit bin stride:
 // a1, a2, d1, d2 (complex, as float pairs), mc (int32), pe per channel
-// (f32), pi per channel (complex); strides of clip and row in elements
-struct Planes {
-  const float* p[5 + 2 * MAX_CH];
-  long long clip[5 + 2 * MAX_CH];
-  int row[5 + 2 * MAX_CH];
+// (f32), pi per channel (complex); its strides of clip and row in elements.
+// The 5 + 2 ch planes travel as a table in device memory, so the kernel
+// takes any channel count.
+struct Plane {
+  const float* p;
+  long long clip, row;
 };
 
-// word w of cell (k, b) of clip `clip`
-__device__ __forceinline__ float input_word(const Planes& in, int ch,
+// the plane of word w of a cell, and the float offset of the word within
+// the plane's element (the real or imaginary half of a complex value)
+__device__ __forceinline__ int plane_of(int w, int ch) {
+  return w < 8 ? w >> 1 : w < 9 + ch ? w - 4 : 5 + ch + ((w - 9 - ch) >> 1);
+}
+
+// word w of cell (k, b) of clip `clip`, from its plane pl
+__device__ __forceinline__ float input_word(const Plane& pl, int ch,
                                             long long clip, int k, int b,
                                             int w) {
-  const int q = w < 8        ? w >> 1
-                : w < 9 + ch ? w - 4
-                             : 5 + ch + ((w - 9 - ch) >> 1);
-  const long long j = clip * in.clip[q] + (long long)k * in.row[q] + b;
+  const long long j = clip * pl.clip + (long long)k * pl.row + b;
   if (w == 8)
-    return __int_as_float(__ldg(reinterpret_cast<const int*>(in.p[4]) + j));
+    return __int_as_float(__ldg(reinterpret_cast<const int*>(pl.p) + j));
   if (w < 8 || w >= 9 + ch)
-    return __ldg(in.p[q] + 2 * j + ((w < 8 ? w : w - 9 - ch) & 1));
-  return __ldg(in.p[q] + j);
+    return __ldg(pl.p + 2 * j + ((w < 8 ? w : w - 9 - ch) & 1));
+  return __ldg(pl.p + j);
 }
 
 // stage[clip] = the inputs in the skewed layout, zero where no cell lies.
 // Grid (ceil(E/32), G, batch), block (32, 8): a 32 x 32 tile of (row, e),
 // read along bins and written along rows through shared memory.
 __global__ void __launch_bounds__(256)
-stage_kernel(const Planes in, float* __restrict__ stage, int nB, int B,
-             int ch, Skew s) {
+stage_kernel(const Plane* __restrict__ planes, float* __restrict__ stage,
+             int nB, int B, int ch, Skew s) {
   __shared__ float tile[32][33];
   const int words = 9 + 3 * ch;
   const int e0 = blockIdx.x * 32, g = blockIdx.y, tx = threadIdx.x;
   const long long clip = blockIdx.z;
   float* st = stage + clip * s.G * s.E * words * 32;
   for (int w = 0; w < words; ++w) {
+    const Plane pl = planes[plane_of(w, ch)];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int l = threadIdx.y + 8 * r, k = 32 * g + l;
       const int b = e0 + tx - l * s.sigma;
       tile[l][tx] = (k < nB && b >= 0 && b < B)
-                        ? input_word(in, ch, clip, k, b, w)
+                        ? input_word(pl, ch, clip, k, b, w)
                         : 0.f;
     }
     __syncthreads();
@@ -411,7 +415,7 @@ sweep_kernel(const float* __restrict__ stage, float2* skewed, int nB, int B,
 }
 
 template <int CH>
-static int launch(const Planes& in, void* out, float* stage, void* skewed,
+static int launch(const Plane* in, void* out, float* stage, void* skewed,
                   int batch, int nB, int B, int ch, int LV, int threads,
                   Skew sk, cudaStream_t stream) {
   int dev = 0, optin = 0;
@@ -442,36 +446,31 @@ static int launch(const Planes& in, void* out, float* stage, void* skewed,
   return (int)cudaGetLastError();
 }
 
-// planes: 5 + 2 ch device pointers, each to a [batch, nB, B] plane with
-// unit bin stride: a1, a2, d1, d2 (complex), mc (int32), pe per channel
-// (f32), pi per channel (complex); clip_strides and row_strides: theirs, in
-// elements; out [batch, ch, nB, B] complex; scratch: stage
+// planes: a table in device memory of 5 + 2 ch entries (pointer, clip
+// stride, row stride; three 64-bit words each, strides in elements), one a
+// [batch, nB, B] plane with unit bin stride: a1, a2, d1, d2 (complex), mc
+// (int32), pe per channel (f32), pi per channel (complex); out [batch, ch,
+// nB, B] complex; scratch: stage
 // [batch][G][E][9 + 3 ch][32] f32 and skewed [batch][G][E][ch][32] complex,
 // G = ceil(nB/32), E = B + 31 sigma.  Three grids: the staging copy, the
 // sweep (one CTA of `threads` per clip, schedule step `sigma`,
 // wavefront.sweep_schedule) and the copy back.  Returns the cudaError_t of
 // the launches (cudaErrorInvalidValue for a schedule the kernel cannot run
-// or more than MAX_CH channels).
-extern "C" int sst_sweep(const void* const* planes,
-                         const long long* clip_strides, const int* row_strides,
-                         void* out, void* stage, void* skewed, int batch,
-                         int nB, int B, int ch, int LV, int threads, int sigma,
-                         void* stream) {
+// or shapes past 32-bit indexing).
+extern "C" int sst_sweep(const void* planes, void* out, void* stage,
+                         void* skewed, int batch, int nB, int B, int ch,
+                         int LV, int threads, int sigma, void* stream) {
   if (batch <= 0 || nB <= 0 || B <= 0) return 0;
   const Skew sk{(nB + 31) / 32, B + 31 * sigma, sigma};
-  if (ch < 1 || ch > MAX_CH || LV < 1 || sigma < LV + 1 || threads < 32 ||
+  if (ch < 1 || LV < 1 || sigma < LV + 1 || threads < 32 ||
       threads > MAX_THREADS || threads % 32 ||
       (nB > threads && (long long)threads * sigma < B) ||
+      (long long)batch * ch > 65535 ||    // the copy back's grid
       (long long)(ch > 4 ? ch : 4) * nB * B > 0x7fffffffLL ||
       (long long)sk.G * sk.E * (9 + 3 * ch) * 32 > 0x7fffffffLL ||
       (long long)B + (long long)(nB - 1) * sigma > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  Planes in{};
-  for (int i = 0; i < 5 + 2 * ch; ++i) {
-    in.p[i] = (const float*)planes[i];
-    in.clip[i] = clip_strides[i];
-    in.row[i] = row_strides[i];
-  }
+  const Plane* in = (const Plane*)planes;
   cudaStream_t s = (cudaStream_t)stream;
   float* st = (float*)stage;
   switch (ch) {

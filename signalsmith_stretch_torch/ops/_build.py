@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` compiles on its own with nvcc into a shared library
 with a plain C interface under `build/torch_kernels/` at the root of the
-checkout; the file name carries a hash of the source and the flags, so an
-edited kernel is rebuilt and an unchanged one is reused.  Nothing is
+checkout; the file name carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited kernel is rebuilt and an
+unchanged one is reused.  Nothing is
 compiled when a module is imported: the first wrapper call on a CUDA tensor
 (or an explicit `build()`) does it.
 
@@ -28,10 +29,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY = {
     "interp": ("sst_interp_multi", [_P] * 4 + [_I] * 6 + [_P]),
-    "sweep": ("sst_sweep", [_P] * 6 + [_I] * 7 + [_P]),
-    "scan": ("sst_iir", [_P] * 4 + [_I, _I, ctypes.c_float, _I, _P]),
+    "sweep": ("sst_sweep", [_P] * 4 + [_I] * 7 + [_P]),
+    "scan": ("sst_iir_chain",
+             [_P] * 4 + [_I, _I, ctypes.c_float, _P] + [_I] * 4 + [_P]),
     "dft": ("sst_dft", [_P] * 6 + [_I] * 4 + [_P]),
-    "decay": ("sst_decay", [_P] * 5 + [_I] * 4 + [_P]),
+    "decay": ("sst_decay_chain", [_P] * 6 + [_I, _I, _P] + [_I] * 4 + [_P]),
     "top3": ("sst_top3", [_P] * 3 + [_I] * 2 + [_P]),
 }
 SOURCES = tuple(ENTRY)
@@ -53,8 +55,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str):
+    """The source and its library, named by a hash of the source, the
+    headers of csrc/ it may include, and the flags."""
     src = CSRC / f"{name}.cu"
     key = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
     return src, BUILD_DIR / f"lib{name}-{key.hexdigest()[:12]}.so"
 
 

@@ -8,12 +8,14 @@ a batch at once, in complex64:
     (:332-376, 806-812), with the fixed-rate shortcuts (every block new,
     every block re-analysed) and the general gathers;
   - for frequency-mapped renders: cross-channel energy, the slew smoothing
-    (kernel C), peaks and the output map, and the prediction lookups at the
-    mapped positions in one multi-set interpolation (kernel A);
+    (kernel C, its four passes in one launch), peaks and the output map,
+    and the prediction lookups at the mapped positions in one multi-set
+    interpolation (kernel A);
   - for formant renders (:970-1036): the pitch estimate (top-3 scan, kernel
-    F, and the freqEstimate chains over blocks on kernel C) unless a base
-    frequency is given, the envelope's eight decay passes (kernel E), and
-    the envelope ratio that rescales the input energies;
+    F, and the two freqEstimate chains over blocks in one launch of kernel
+    C) unless a base frequency is given, the envelope's eight decay passes
+    (kernel E, one launch), and the envelope ratio that rescales the input
+    energies;
   - the prediction energies, the c1 chain coefficient and the four vote
     coefficients a1, a2, d1, d2 of the main prediction (:722-803).
 
@@ -109,15 +111,17 @@ def _formant_ratio(metric: torch.Tensor, batch: int,
         # no base frequency given (the controls are scalars, so JAX's
         # per-block select of a given base never applies): pitch estimate
         # (:927-968), the top-3 scan (kernel F), the harmonic heuristic and
-        # the freqEstimateWeighted chains over blocks (C)
+        # the freqEstimateWeighted chains over blocks (C): the weighted
+        # estimates and the weights of every clip, stacked as independent
+        # rows of one forward pass
         top3 = (spectral._top3_local_maxima if plain
                 else scan_ops.top3_local_maxima)
-        iir = scan_ops.iir_plain if plain else scan_ops.iir
+        iir = scan_ops.iir_chain_plain if plain else scan_ops.iir_chain
         pe_est, weight = spectral._peak_estimate(*top3(metric))
-        few, _ = iir((pe_est.to(torch.float32) * weight).reshape(batch, nB),
-                     zeros(batch), 0.25)
-        fw, _ = iir(weight.reshape(batch, nB).contiguous(), zeros(batch),
-                    0.25)
+        rows = torch.cat([pe_est.to(torch.float32) * weight, weight])
+        chains, _ = iir(rows.reshape(2 * batch, nB), zeros(2 * batch), 0.25,
+                        (False,))
+        few, fw = chains[:batch], chains[batch:]
         if dbg is not None:
             dbg.update(freq_estimate_weighted=few, freq_weight=fw)
         freq_estimate = (few / (fw + float(f32(1e-30)))).reshape(R)
@@ -127,16 +131,16 @@ def _formant_ratio(metric: torch.Tensor, batch: int,
         freq_estimate = torch.full((R,), base_band, dtype=torch.float32,
                                    device=dev)
 
-    # envelope: two max passes with the decay, two min passes with its
-    # inverse, each pass starting from the previous one's last value (E)
+    # envelope: two max steps with the decay, two min steps with its
+    # inverse, each a backward then a forward pass, each pass starting from
+    # the previous one's last value: eight passes in one launch (E)
     decay = 1 - 1 / (freq_estimate * 0.5 + 1)
     inv_decay = 1 / decay
-    run = scan_ops.decay_plain if plain else scan_ops.decay
-    env, e = metric, zeros(R)
-    for coef, is_min in ((decay, False), (inv_decay, True)):
-        for _ in range(2):
-            env, e = run(env, e, coef, is_min, backward=True)
-            env, e = run(env, e, coef, is_min)
+    run = scan_ops.decay_chain_plain if plain else scan_ops.decay_chain
+    passes = [(coef, is_min, backward)
+              for coef, is_min in ((decay, False), (inv_decay, True))
+              for _ in range(2) for backward in (True, False)]
+    env, _ = run(metric, zeros(R), passes)
 
     lo_i, hi_i, frac, below = _formant_targets(
         controls, flags.formant_compensation, B, consts.fft_samples, dev)
@@ -214,12 +218,11 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
 
     if flags.mapped:
         # ---- smoothing + peaks + output map (:816-917) --------------------
-        iir = scan_ops.iir_plain if plain else scan_ops.iir   # kernel C
-        sm = energy
-        e = torch.zeros(R, dtype=torch.float32, device=dev)
-        for _ in range(2):       # each step a down then an up pass
-            sm, e = iir(sm, e, consts.slew, backward=True)
-            sm, e = iir(sm, e, consts.slew)
+        # two steps, each a down then an up pass, each pass from the
+        # previous one's last value: four passes in one launch (kernel C)
+        iir = scan_ops.iir_chain_plain if plain else scan_ops.iir_chain
+        sm, _ = iir(energy, torch.zeros(R, dtype=torch.float32, device=dev),
+                    consts.slew, (True, False, True, False))
         input_bin, freq_grad = spectral._peaks_and_map(energy, sm, controls,
                                                        consts)
         if debug:

@@ -16,7 +16,6 @@ arithmetic with the kernel's operation order.
 """
 from __future__ import annotations
 
-import ctypes
 from collections import deque
 
 import torch
@@ -29,7 +28,6 @@ from .planner import SweepInputs, plan_spectral
 
 launches = 0          # kernel launches of sweep
 SWEEP_MAX_THREADS = 512   # threads of one CTA (csrc/sweep.cu MAX_THREADS)
-SWEEP_MAX_CHANNELS = 16   # channels the kernel takes (csrc/sweep.cu MAX_CH)
 
 
 def sweep_schedule(nB: int, B: int, longv: int,
@@ -146,10 +144,9 @@ def sweep(inputs: SweepInputs, longv: int) -> torch.Tensor:
         return sweep_plain(inputs, longv)
     batch, nB, B = inputs.a1.shape
     ch = len(inputs.pi)
-    if len(inputs.pe) != ch or not 1 <= ch <= SWEEP_MAX_CHANNELS:
+    if len(inputs.pe) != ch or ch < 1:
         raise ValueError(f"sweep: {ch} channels of inputs and "
-                         f"{len(inputs.pe)} of energies, the kernel takes 1 "
-                         f"to {SWEEP_MAX_CHANNELS}")
+                         f"{len(inputs.pe)} of energies")
     # the planes as the planner left them: any clip and row strides, unit
     # bin stride
     planes = [p if p.stride(-1) == 1 else p.contiguous() for p in
@@ -176,16 +173,17 @@ def sweep(inputs: SweepInputs, longv: int) -> torch.Tensor:
                         dtype=torch.float32, device=dev)
     skewed = torch.empty((batch, groups, diags, ch, 32),
                          dtype=torch.complex64, device=dev)
-    n = len(planes)
-    ptrs = (ctypes.c_void_p * n)(*[p.data_ptr() for p in planes])
-    clip_strides = (ctypes.c_longlong * n)(*[p.stride(0) for p in planes])
-    row_strides = (ctypes.c_int * n)(*[p.stride(1) for p in planes])
+    # the plane table, (pointer, clip stride, row stride) a plane, in device
+    # memory: any channel count fits.  Copied from pinned memory, so the
+    # copy does not hold the host (the caching host allocator keeps the
+    # block until the copy has run)
+    table = torch.tensor([(p.data_ptr(), p.stride(0), p.stride(1))
+                          for p in planes], dtype=torch.int64)
+    table = table.pin_memory().to(dev, non_blocking=True)
     rc = _build.entry("sweep")(
-        ctypes.cast(ptrs, ctypes.c_void_p),
-        ctypes.cast(clip_strides, ctypes.c_void_p),
-        ctypes.cast(row_strides, ctypes.c_void_p), out.data_ptr(),
-        stage.data_ptr(), skewed.data_ptr(), batch, nB, B, ch, longv,
-        threads, sigma, torch.cuda.current_stream(dev).cuda_stream)
+        table.data_ptr(), out.data_ptr(), stage.data_ptr(), skewed.data_ptr(),
+        batch, nB, B, ch, longv, threads, sigma,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "sst_sweep")
     launches += 1
     return out

@@ -67,14 +67,31 @@ def test_interp_kernel_matches_plain(dev, taps):
             torch.testing.assert_close(gg, rr, rtol=0, atol=0, equal_nan=True)
 
 
-@pytest.mark.parametrize("backward", [False, True])
-def test_iir_kernel_matches_plain(dev, backward):
+# chain cases: rows (one, one CTA short of a tile, one past it, many),
+# bins (the block chains' 335, not 16-byte aligned; 1000; the render's
+# 4096) and passes (one; the smoothing's four; the envelope's eight)
+CHAIN_GRID = [(R, B, P) for R in (1, 31, 33, 300) for B in (335, 1000, 4096)
+              for P in (1, 4, 8)]
+CHAIN_IDS = [f"R{R}-B{B}-P{P}" for R, B, P in CHAIN_GRID]
+
+
+@pytest.mark.parametrize("R,B,directions", [
+    (37, 513, (False,)), (37, 513, (True,))] + [
+    (R, B, tuple(p % 2 == 0 for p in range(P))) for R, B, P in CHAIN_GRID],
+    ids=["False", "True"] + CHAIN_IDS)
+def test_iir_kernel_matches_plain(dev, R, B, directions):
+    """One pass (the two first cases: forward and backward), or a chain of
+    passes alternating from backward, in one launch: bit-equal to the plain
+    passes, y and the final value."""
     rng = np.random.default_rng(1)
-    x = _t(rng.uniform(0, 3, (37, 513)).astype(np.float32), dev)
-    init = _t(rng.uniform(0, 1, 37).astype(np.float32), dev)
-    y, fin = scan_ops.iir(x, init, 0.13, backward=backward)
-    yp, finp = scan_ops.iir_plain(x, init, 0.13, backward=backward)
+    x = _t(rng.uniform(0, 3, (R, B)).astype(np.float32), dev)
+    init = _t(rng.uniform(0, 1, R).astype(np.float32), dev)
+    y, fin = scan_ops.iir_chain(x, init, 0.13, directions)
+    yp, finp = scan_ops.iir_chain_plain(x, init, 0.13, directions)
     assert torch.equal(y, yp) and torch.equal(fin, finp)
+    if len(directions) == 1:     # the one-pass wrapper is the same launch
+        y1, fin1 = scan_ops.iir(x, init, 0.13, backward=directions[0])
+        assert torch.equal(y1, y) and torch.equal(fin1, fin)
 
 
 def _sweep_inputs(rng, batch, nB, B, ch, dev, views=False):
@@ -104,10 +121,10 @@ def _sweep_inputs(rng, batch, nB, B, ch, dev, views=False):
     (70, 96, 6, 2, False), (2200, 24, 6, 2, False), (70, 96, 4, 2, False),
     (70, 96, 5, 2, False), (1100, 24, 6, 2, False), (600, 3700, 6, 2, False),
     (70, 96, 6, 1, False), (70, 96, 6, 3, False), (20, 400, 6, 2, False),
-    (70, 96, 6, 2, True)],
+    (70, 96, 6, 2, True), (40, 64, 6, 24, False), (300, 48, 6, 25, False)],
     ids=["shared_ring", "global_fallback", "lv4", "lv5", "rows_loop",
          "sigma_raised", "mono", "three_ch", "rows_past_period",
-         "channel_views"])
+         "channel_views", "ch24", "ch25_fallback"])
 def test_sweep_kernel_matches_plain(dev, nB, B, longv, ch, views):
     """global_fallback's ring (2200 rows x 2 channels x 7 diagonals) does
     not fit in shared memory, so the kernel reads its outputs back from the
@@ -118,7 +135,9 @@ def test_sweep_kernel_matches_plain(dev, nB, B, longv, ch, views):
     loads channel inputs at the cell.  rows_past_period: one row per thread
     (32 threads) and rows longer than threads*sigma, as at the render's
     335 x 4096 shapes.  channel_views: energies and inputs read through
-    their clip and row strides."""
+    their clip and row strides.  ch24 and ch25_fallback: 22.2 and 4th-order
+    ambisonics channel counts (the plane table travels in device memory),
+    the second with a ring too large for shared memory."""
     rng = np.random.default_rng(2)
     inputs = _sweep_inputs(rng, 2, nB, B, ch, dev, views)
     got = wavefront.sweep(inputs, longv)
@@ -165,21 +184,51 @@ def test_dft_kernel_matches_plain(dev, preset, rate):
         assert float(err) <= 3e-6, float(err)
 
 
-@pytest.mark.parametrize("backward", [False, True])
-@pytest.mark.parametrize("is_min", [False, True])
+@pytest.mark.parametrize("is_min,backward", [
+    (False, False), (False, True), (True, False), (True, True)],
+    ids=["False-False", "False-True", "True-False", "True-True"])
 def test_decay_kernel_matches_plain(dev, is_min, backward):
     rng = np.random.default_rng(6)
     x = rng.exponential(0.5, (37, 513)).astype(np.float32)
     x[3] = 0                                 # a silent row
     decay = rng.uniform(0.8, 0.99, 37).astype(np.float32)
     decay[3] = 0
-    coef = (np.float32(1) / decay) if is_min else decay  # inf on row 3
+    with np.errstate(divide="ignore"):
+        coef = (np.float32(1) / decay) if is_min else decay  # inf on row 3
     init = rng.uniform(0, 1, 37).astype(np.float32)
     args = [_t(v, dev) for v in (x, init, coef.astype(np.float32))]
     y, fin = scan_ops.decay(*args, is_min, backward)
     yp, finp = scan_ops.decay_plain(*args, is_min, backward)
     assert torch.equal(y, yp) and torch.equal(fin, finp)
     assert not torch.isnan(y).any()
+
+
+@pytest.mark.parametrize("R,B,P", CHAIN_GRID, ids=CHAIN_IDS)
+def test_decay_chain_kernel_matches_plain(dev, R, B, P):
+    """A chain in one launch: one min pass backward with the inverse decay
+    (P 1), the four max passes with the decay (P 4), or the envelope's
+    eight (P 8).  A silent row (decay 0, inverse inf: NaN products
+    discarded) and a NaN in x (kept where it stands, as std::max keeps it):
+    bit-equal to the plain passes, NaN for NaN."""
+    rng = np.random.default_rng(R + B + P)
+    x = rng.exponential(0.5, (R, B)).astype(np.float32)
+    decay = rng.uniform(0.8, 0.99, R).astype(np.float32)
+    x[R // 2] = 0
+    decay[R // 2] = 0
+    x[0, B // 3] = np.nan
+    d = _t(decay, dev)
+    inv = 1 / d
+    if P == 1:
+        passes = [(inv, True, True)]
+    else:
+        passes = [(c, m, b) for c, m in ((d, False), (inv, True))[:P // 4]
+                  for _ in range(2) for b in (True, False)]
+    args = [_t(v, dev) for v in (x, rng.uniform(0, 1, R).astype(np.float32))]
+    y, fin = scan_ops.decay_chain(*args, passes)
+    yp, finp = scan_ops.decay_chain_plain(*args, passes)
+    torch.testing.assert_close(y, yp, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(fin, finp, rtol=0, atol=0, equal_nan=True)
+    assert int(torch.isnan(y).sum()) == 1    # only where x is NaN
 
 
 def test_top3_kernel_matches_plain(dev):

@@ -178,6 +178,73 @@ def test_decay_inf_discards_nan():
     assert scan_ops.decay_launches == 0
 
 
+def test_decay_chain_plain_matches_jax():
+    """The envelope's eight passes (max backward/forward twice with the
+    decay, then min with its inverse, each from the previous pass's last
+    value) as decay_chain_plain runs them, against the JAX passes: rtol
+    2e-6 as the single passes; a silent row (decay 0, inverse inf, every
+    min product NaN and discarded) bit for bit.  On the CPU the wrapper is
+    the plain chain, bit for bit."""
+    rng = np.random.default_rng(8)
+    x = rng.uniform(0.01, 2.0, (7, 257)).astype(f32)
+    x[3] = 0                                  # a silent row
+    decay = rng.uniform(0.9, 0.99, 7).astype(f32)
+    decay[3] = 0
+    with np.errstate(divide="ignore"):
+        inv = (f32(1) / decay).astype(f32)    # inf on row 3
+    dt, it = torch.as_tensor(decay), torch.as_tensor(inv)
+    passes = [(c, m, b) for c, m in ((dt, False), (it, True))
+              for _ in range(2) for b in (True, False)]
+    init = torch.zeros(7)
+    y, fin = scan_ops.decay_chain_plain(torch.as_tensor(x), init, passes)
+    ry, rfin = jnp.asarray(x), jnp.zeros(7, jnp.float32)
+    for name, coef in (("max", decay), ("min", inv)):
+        for _ in range(2):
+            for d in ("backward", "forward"):
+                ry, rfin = getattr(jscan, f"decay_{name}_{d}")(
+                    ry, rfin, jnp.asarray(coef))
+    ry, rfin = np.asarray(ry), np.asarray(rfin)
+    assert not torch.isnan(y).any()
+    np.testing.assert_allclose(y.numpy(), ry, rtol=2e-6)
+    np.testing.assert_allclose(fin.numpy(), rfin, rtol=2e-6)
+    np.testing.assert_array_equal(y[3].numpy(), ry[3])
+    assert float(fin[3]) == float(rfin[3]) == 0.0
+    y2, fin2 = scan_ops.decay_chain(torch.as_tensor(x), init, passes)
+    assert torch.equal(y2, y) and torch.equal(fin2, fin)
+    assert scan_ops.decay_launches == 0
+
+
+def test_decay_chain_walk_model_matches_plain():
+    """The chain kernel's walk (tests/test_torch_scan.walk_model) with the
+    envelope's eight passes and their flags, at ragged R and B, bit-equal to
+    decay_chain_plain, the silent row's NaN products discarded."""
+    from test_torch_scan import walk_model
+    rng = np.random.default_rng(9)
+    R, B = 37, 335
+    x = rng.exponential(0.5, (R, B)).astype(f32)
+    x[5] = 0
+    decay = rng.uniform(0.8, 0.99, R).astype(f32)
+    decay[5] = 0
+    dt = torch.as_tensor(decay)
+    it = 1 / dt
+    passes = [(c, m, b) for c, m in ((dt, False), (it, True))
+              for _ in range(2) for b in (True, False)]
+    flags = [scan_ops.BACKWARD * b + scan_ops.MIN * m
+             + scan_ops.COEF1 * (c is it) for c, m, b in passes]
+
+    def step(p, v, col):
+        coef, is_min, _ = passes[p]
+        t = coef * v
+        return torch.where(t < col, t, col) if is_min \
+            else torch.where(col < t, t, col)
+
+    init = torch.as_tensor(rng.uniform(0, 1, R).astype(f32))
+    y, fin, _ = walk_model(torch.as_tensor(x), init, flags, step, 128)
+    yp, finp = scan_ops.decay_chain_plain(torch.as_tensor(x), init, passes)
+    assert torch.equal(y, yp) and torch.equal(fin, finp)
+    assert not torch.isnan(y).any()
+
+
 def _plan_both(sig, rate, case):
     model, jm = _models(sig, rate, case)
     js, jp = jengine.analyze_stage(jnp.asarray(sig), jm.plan)

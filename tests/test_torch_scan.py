@@ -9,6 +9,12 @@ products and sums.  Tolerance: 1e-6 of each row's largest magnitude
 values; on these rows one pass measures up to 1.6e-7, the four-pass chain
 up to 4.6e-7, and a pass's final value against its own magnitude up to
 7.8e-7).
+
+The chain kernel's walk (ops/scan_ops.chain_walk, the step table that
+csrc/chain.cuh follows) is replayed on the CPU by `walk_model`, which
+checks every slot and copy hazard and is held bit-equal to the plain
+chain; its tile layout's shared-memory bank conflicts are counted in a
+model of the warps' accesses.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -99,3 +105,178 @@ def test_smoothing_chain_matches_jax(rate):
                                                         consts))
                     for row in x])
     _close(sm.numpy(), ref)
+
+
+@pytest.mark.parametrize("directions", [
+    (True, False, True, False), (False,), (True,), (False, False, True)],
+    ids=["smoothing", "forward", "backward", "mixed"])
+def test_iir_chain_plain_matches_jax(directions):
+    """iir_chain_plain against the loop of JAX iir_backward/iir_forward
+    passes, each from the previous pass's last value."""
+    consts = SpectralConsts.for_config(StretchConfig.preset_default(2, 8000))
+    x = _energy(7, consts.bands, 17)
+    init = np.random.default_rng(2).uniform(0, 1, 7).astype(np.float32)
+    y, fin = scan_ops.iir_chain_plain(torch.as_tensor(x),
+                                      torch.as_tensor(init), consts.slew,
+                                      directions)
+    ry, rfin = jnp.asarray(x), jnp.asarray(init)
+    for backward in directions:
+        fn = jscan.iir_backward if backward else jscan.iir_forward
+        ry, rfin = fn(ry, rfin, np.float32(consts.slew))
+    _close(y.numpy(), ry)
+    _close(fin.numpy()[:, None], np.asarray(rfin)[:, None])
+    # on the CPU the wrapper is the plain chain, bit for bit
+    y2, fin2 = scan_ops.iir_chain(torch.as_tensor(x), torch.as_tensor(init),
+                                  consts.slew, directions)
+    assert torch.equal(y2, y) and torch.equal(fin2, fin)
+    assert scan_ops.launches == 0
+
+
+def walk_model(x, init, flags, step, tile):
+    """The chain kernel (csrc/chain.cuh) as it follows chain_walk's table:
+    a ring of slots [slots, R, tile], copies that land CHAIN_LEAD steps
+    after they start, computes in place, stores to the output.  Asserts that no
+    step touches a slot twice, that no copy is read before it lands or
+    overwrites a tile not yet stored, that no store changes a tile a copy
+    in flight reads, and that each pass visits every bin of every row once,
+    in its order.  step(p, v, column) is pass p's update.  Returns (y,
+    final, slots)."""
+    R, B = x.shape
+    lead = scan_ops.CHAIN_LEAD
+    table, slots = scan_ops.chain_walk(B, flags, tile)
+    nt, P = -(-B // tile), len(flags)
+    expected = [(p, t) for p in range(P) for t in
+                (range(nt - 1, -1, -1) if flags[p] & 1 else range(nt))]
+    data = torch.zeros(slots, R, tile)
+    held = [None] * slots            # (tile, passes applied - 1)
+    flight = {}                      # slot -> (landing step, tile, source)
+    y = torch.full_like(x, float("nan"))
+    y_ver = {}                       # tile -> the pass its stored output has
+    visits = [[] for _ in range(P)]  # bins in visit order, per pass
+    v = init.clone()
+    done = 0
+    for j, (cs, ct, cf, ss, st, ls, lt, src) in enumerate(table.tolist()):
+        used = [s for s in (cs, ss, ls) if s >= 0]
+        assert len(set(used)) == len(used), (j, used)
+        for s in [s for s, (land, _, _) in flight.items() if land <= j]:
+            land, t, (sv, snap) = flight.pop(s)
+            if sv >= 0:              # the source did not change in flight
+                assert y_ver[t] == sv, (j, t)
+            data[s], held[s] = snap, (t, sv)
+        if cs >= 0:
+            p, t = expected[done]
+            done += 1
+            assert (ct, cf) == (t, flags[p]) and cs not in flight, j
+            assert held[cs] == (t, p - 1), (j, held[cs], t, p)
+            w = min(tile, B - t * tile)
+            for i in (range(w - 1, -1, -1) if cf & 1 else range(w)):
+                v = step(p, v, data[cs, :, i])
+                data[cs, :, i] = v
+                visits[p].append(t * tile + i)
+            held[cs] = (t, p)
+        if ls >= 0:
+            assert ls not in flight and ls < slots, j
+            if held[ls] is not None:     # its tile was stored already
+                assert y_ver.get(held[ls][0]) == held[ls][1], (j, held[ls])
+            snap = torch.zeros(R, tile)
+            w = min(tile, B - lt * tile)
+            if src == 0:
+                sv = -1
+                snap[:, :w] = x[:, lt * tile:lt * tile + w]
+            else:
+                sv = y_ver[lt]
+                snap[:, :w] = y[:, lt * tile:lt * tile + w]
+            flight[ls] = (j + lead, lt, (sv, snap))
+            held[ls] = None
+        if ss >= 0:
+            assert ss not in flight and held[ss][0] == st, j
+            assert not any(t == st for _, t, (sv, _) in flight.values()
+                           if sv >= 0), j
+            w = min(tile, B - st * tile)
+            y[:, st * tile:st * tile + w] = data[ss, :, :w]
+            y_ver[st] = held[ss][1]
+    assert done == len(expected) and not flight
+    assert all(y_ver.get(t) == P - 1 for t in range(nt))
+    for p in range(P):
+        assert visits[p] == (list(range(B - 1, -1, -1)) if flags[p] & 1
+                             else list(range(B)))
+    return y, v, slots
+
+
+@pytest.mark.parametrize("R,B,tile,P", [
+    (37, 335, 128, 4), (37, 4096, 96, 4), (37, 4096, 128, 1),
+    (5, 300, 128, 8), (3, 100, 128, 3), (33, 1000, 128, 2)],
+    ids=["ragged_B", "tile_not_dividing", "one_pass", "eight_passes",
+         "all_resident", "two_passes"])
+def test_iir_chain_walk_model_matches_plain(R, B, tile, P):
+    """The kernel's walk at ragged R and B, modelled on the CPU, is bit-equal
+    to the plain chain of alternating passes (backward first)."""
+    rng = np.random.default_rng(R + B + P)
+    x = torch.as_tensor(_energy(R, B, B))
+    init = torch.as_tensor(rng.uniform(0, 1, R).astype(np.float32))
+    slew = _slew(8000)
+    directions = [p % 2 == 0 for p in range(P)]
+
+    def step(p, v, col):
+        return v + (col - v) * slew
+
+    y, fin, slots = walk_model(x, init, [int(d) for d in directions], step,
+                               tile)
+    yp, finp = scan_ops.iir_chain_plain(x, init, slew, directions)
+    assert torch.equal(y, yp) and torch.equal(fin, finp)
+    assert slots <= scan_ops.CHAIN_MAX_SLOTS
+
+
+@pytest.mark.parametrize("flags", [(0, 0), (1, 1, 0), (0, 0, 0, 1, 1)],
+                         ids=["forward_twice", "backward_twice", "runs"])
+@pytest.mark.parametrize("B", [60, 1000])
+def test_chain_walk_same_direction_passes(flags, B):
+    """Passes that do not reverse keep nothing resident: every tile is
+    reloaded, after its store, with bubbles where a short row forces them."""
+    x = torch.as_tensor(_energy(4, B, 3))
+    init = torch.zeros(4)
+    slew = 0.3
+
+    def step(p, v, col):
+        return v + (col - v) * slew
+
+    y, fin, _ = walk_model(x, init, flags, step, 32)
+    yp, finp = scan_ops.iir_chain_plain(x, init, slew,
+                                        [bool(f & 1) for f in flags])
+    assert torch.equal(y, yp) and torch.equal(fin, finp)
+
+
+def _wavefronts(lane_words, width):
+    """Shared-memory wavefronts of one warp request: lanes' word addresses,
+    `width` words (1 or 4) each.  16-byte requests go in four phases of 8
+    lanes, 4-byte ones in one of 32; within a phase, distinct 16-byte (or
+    4-byte) units on one bank group serialise."""
+    per_phase = 8 if width == 4 else 32
+    total = 0
+    for ph in range(0, 32, per_phase):
+        banks = {}
+        for a in lane_words[ph:ph + per_phase]:
+            for bank in range(a % 32, a % 32 + width):
+                banks.setdefault(bank % 32, set()).add(a // width)
+        total += max(len(u) for u in banks.values())
+    return total
+
+
+def test_chain_tile_layout_is_conflict_free():
+    """The tile layout of csrc/chain.cuh, row pitch CHAIN_TILE + 4 floats:
+    the computing lanes' 16-byte reads of one bin column (lane r, row r) and
+    the copying threads' 16-byte copies along rows take one wavefront a
+    phase (four a warp); the scalar copies of rows that are not 16-byte
+    aligned take one.  Only the ragged last tile's scalar reads down a
+    column conflict (4-way: 4 wavefronts, not 1)."""
+    pitch, T = scan_ops.CHAIN_PITCH, scan_ops.CHAIN_TILE
+    for q in range(0, T, 4):
+        assert _wavefronts([r * pitch + q for r in range(32)], 4) == 4
+    for c0 in range(0, 32 * T // 4, 32):      # a warp of copying threads
+        words = [(c // (T // 4)) * pitch + 4 * (c % (T // 4))
+                 for c in range(c0, c0 + 32)]
+        assert _wavefronts(words, 4) == 4
+    for c0 in range(0, 32 * T, 32):
+        words = [(c // T) * pitch + c % T for c in range(c0, c0 + 32)]
+        assert _wavefronts(words, 1) == 1
+    assert _wavefronts([r * pitch + 5 for r in range(32)], 1) == 4

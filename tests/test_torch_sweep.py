@@ -256,3 +256,34 @@ def test_sweep_schedule():
     assert wavefront.sweep_schedule(2200, 24, 6) == (512, 7, 24 + 2199 * 7)
     assert wavefront.sweep_schedule(600, 4096, 6) == (512, 8, 4096 + 599 * 8)
     assert wavefront.sweep_schedule(600, 4096, 6)[0] == wavefront.SWEEP_MAX_THREADS
+
+
+@pytest.mark.parametrize("ch", [17, 24, 25])
+def test_sweep_wrapper_takes_any_channel_count(monkeypatch, ch):
+    """The card's wrapper passes 17 or more channels (22.2's 24, 4th-order
+    ambisonics' 25) to the kernel instead of refusing them: the inputs lie
+    on the meta device (shapes without data), and the kernel's entry point
+    is replaced by one that records its arguments."""
+    calls = []
+    monkeypatch.setattr(wavefront._build, "entry",
+                        lambda name: lambda *a: calls.append((name, a)) or 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(torch.Tensor, "pin_memory", lambda t: t)  # no card
+    batch, nB, B, longv = 2, 40, 64, 6
+
+    def plane(dtype):
+        return torch.empty((batch, nB, B), dtype=dtype, device="meta")
+
+    inputs = planner.SweepInputs(
+        a1=plane(torch.complex64), a2=plane(torch.complex64),
+        d1=plane(torch.complex64), d2=plane(torch.complex64),
+        mc=plane(torch.int32),
+        pe=tuple(plane(torch.float32) for _ in range(ch)),
+        pi=tuple(plane(torch.complex64) for _ in range(ch)))
+    out = wavefront.sweep(inputs, longv)
+    assert out.shape == (batch, ch, nB, B) and out.dtype == torch.complex64
+    [(name, args)] = calls
+    threads, sigma, _ = wavefront.sweep_schedule(nB, B, longv)
+    assert name == "sweep"
+    assert args[4:11] == (batch, nB, B, ch, longv, threads, sigma)
