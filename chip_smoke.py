@@ -14,20 +14,23 @@ Phases, in order; any failure exits non-zero before the last line:
      spectrum's peak of the plain analysis (cuFFT); on the pitch+12
      configuration's planner inputs the interp kernel (A) in lerp and taps
      mode, the slew scan (C: the smoothing's four passes in one launch, and
-     one pass each way) and the diagonal sweep (B); on the auto-base formant
-     configuration's metric the decay scans (E: the envelope's eight passes
-     in one launch, and each single pass) and the top-3 scan (F); every
-     kernel but D bit-equal, C and E in their outputs and final values.
-     C, E and F are also timed on one row, where one lane runs the whole
-     chain: the card's own serial floor for that work (`chain_ms`);
+     one pass each way), the peaks and output map (G, also on edge rows,
+     and against the plain version on a CPU copy of its inputs: each run
+     summed bin-ascending) and the diagonal sweep (B); on the auto-base
+     formant configuration's metric the decay scans (E: the envelope's
+     eight passes in one launch, and each single pass) and the top-3 scan
+     (F, also on corner rows); every kernel but D bit-equal, C and E in
+     their outputs and final values.  C, E and F are also timed on one
+     row (`chain_ms`): for C and E one lane runs the whole chain, the
+     card's own serial floor for that work; for F one warp;
   4. renders of stereo48k_default_1.25x, stereo48k_pitch+12_tonality8k,
      formant_vocal_shift (base 220 Hz) and formant_vocal_shift_auto (base
      estimated per block) at batch 8 x 10 s stereo 48 kHz through
      StretchModel.batched, with each configuration's launch counts,
      finiteness, shape, run-to-run bit identity, and a batch-1 clip through
      the kernels against the same clip through the plain versions: the
-     spectral stage (A, B, C, E, F) on the spectra of one analysis through
-     D bit-equal, and the whole render bit-equal, else within the
+     spectral stage (A, B, C, E, F, G) on the spectra of one analysis
+     through D bit-equal, and the whole render bit-equal, else within the
      chaos-relative gate (D rounds otherwise than cuFFT);
   5. the kernel table as one JSON line, the nvidia-smi line, and the device
      line {"ok": true, "device": {...}} last.  A kernel's `ms` is the median
@@ -89,6 +92,8 @@ KERNELS = (
      "signalsmith_stretch_tpu/ops/scan_ops.py:95"),
     ("top3", "signalsmith_stretch_torch/csrc/top3.cu",
      "signalsmith_stretch_tpu/spectral.py:325"),
+    ("peaks_map", "signalsmith_stretch_torch/csrc/peaks.cu",
+     "signalsmith_stretch_tpu/spectral.py:260"),
 )
 DFT_TOL = 3e-6        # of the spectrum's peak magnitude (tests/test_stft.py)
 
@@ -122,6 +127,72 @@ def band_energy_db(x, nbands=24):
     e = np.stack([spec[..., a:b].sum(-1) for a, b in zip(edges, edges[1:])],
                  -1)
     return 10 * np.log10(e + 1e-20)
+
+
+def top3_corner_rows(seed=0):
+    """The top-3 scan's corners, as float32 [rows, B] arrays at B = 3, 5,
+    37, 300 and 333 (only 300 a multiple of four, which the float4 loads
+    need; none a multiple of a warp's 128-bin chunk): peaks over a noise
+    floor; a NaN at bin 0; NaN local maxima with their neighbours; -0.0 and
+    +0.0 peaks that tie; +inf peaks with -inf around them; plateaus; equal
+    peaks; a silent row; a constant row; bin 0 above every peak; a rising
+    row; alternating equal peaks."""
+    rng = np.random.default_rng(seed)
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    sets = [np.array([[0, 1, 0], [nan, 1, 0], [1, 1, 0], [0, inf, 0],
+                      [-1, -0.0, -1], [0, nan, 0], [2, 1, 0]], np.float32),
+            rng.exponential(1.0, (6, 5)).astype(np.float32)]
+    for B in (37, 300, 333):
+        m = rng.exponential(0.01, (12, B)).astype(np.float32)
+        for r in range(12):
+            m[r, rng.integers(1, B - 1, 8)] += rng.uniform(0.5, 5, 8)
+        m[1, 0] = nan
+        m[2, 5:B - 1:7] = nan                    # NaN maxima, and around
+        m[3] = -1
+        m[3, 0] = -2
+        m[3, [5, 9, 13, 17]] = [0.0, -0.0, 0.0, -0.0]
+        m[4] = -inf
+        m[4, 0] = 0
+        m[4, [3, 20, B - 2]] = inf
+        m[4, [8, 12]] = 1
+        m[5] = np.round(m[5] * 4) / 4            # plateaus
+        m[6, 10:20] = m[6, B - 20:B - 10] = 3.0  # equal peaks
+        m[7] = 0
+        m[8] = 1.5
+        m[9, 0] = 100
+        m[10] = np.arange(B, dtype=np.float32)
+        m[11] = np.where(np.arange(B) % 2, np.float32(2), np.float32(1))
+        sets.append(m)
+    return sets
+
+
+def peaks_edge_rows(B, seed=0):
+    """Energy and smoothed rows [14, B] float32 (B >= 64) for the peaks
+    map's edges: no run; one run of all B bins; alternating bins (B/2
+    runs, the most a row can hold); a run from bin 0; a run to bin B-1; a
+    single peak in the top bins (its mapped output above B under a pitch
+    map up); a run of zero energy (its average band 0/1); the rest random
+    spectra over their smoothed curves."""
+    rng = np.random.default_rng(seed)
+    e = rng.exponential(0.05, (14, B))
+    for r in range(14):
+        e[r, rng.integers(0, B, 12)] += rng.uniform(0.5, 20, 12)
+    box = np.ones(9) / 9
+    sm = np.stack([np.convolve(row, box, mode="same") for row in e])
+    sm = sm * 1.2 + 0.01
+    b = np.arange(B)
+    e[0], sm[0] = 0.5, 1.0                        # no run
+    e[1], sm[1] = rng.uniform(1, 2, B), 0.5       # one run of all B bins
+    e[2], sm[2] = np.where(b % 2, 2.0, 0.1), 1.0  # alternating: B/2 runs
+    sm[3, :25] = 0                                # a run from bin 0
+    e[3, :25] += 0.1
+    sm[4, B - 25:] = 0                            # a run to bin B-1
+    e[4, B - 25:] += 0.1
+    e[5], sm[5] = 0.1, 1.0                        # one peak near the top
+    e[5, B - 8:B - 3] = [2, 5, 9, 5, 2]
+    e[6], sm[6] = 0.0, 1.0                        # a run of zero energy
+    sm[6, 40:60] = -1.0
+    return e.astype(np.float32), sm.astype(np.float32)
 
 
 def smi_line():
@@ -199,6 +270,16 @@ def max_abs(a, b):
     if a.is_complex():
         a, b = torch.view_as_real(a), torch.view_as_real(b)
     return float((a.double() - b.double()).abs().max())
+
+
+def same_bits(a, b):
+    """Equal dtypes, shapes and bits (a float NaN equals its own bits)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
 
 
 def header():
@@ -294,6 +375,8 @@ def check_kernels():
                                    bound=bound_ms(nbytes, flops))
 
     entries["iir"] = check_slew_scan(dbg["energy"], plan.consts.slew)
+    entries["peaks_map"] = check_peaks_map(dbg["energy"], dbg["smoothed"],
+                                           model.controls, plan.consts)
 
     # --- B: the diagonal sweep --------------------------------------------
     longv = plan.consts.long_vertical_step
@@ -388,6 +471,95 @@ def check_slew_scan(x, slew):
           f"GB/s of pass traffic back to back")
     return dict(max_abs_err=err, ms=ms, ms_b2b=b2b, plain_ms=plain,
                 bound=bound, chain_ms=floor)
+
+
+def index_put_slots_differing(energy, smoothed):
+    """The peaks map's two run sums (of b*energy and of energy), taken by
+    the card's own `index_put_` with accumulate under deterministic
+    algorithms, against spectral._segment_sums, which adds each run
+    bin-ascending (on a CPU copy): the number of run slots whose sums differ
+    in any bit.  The runs are built as spectral._peaks_and_map builds
+    them."""
+    import torch
+    import torch.nn.functional as F
+    from signalsmith_stretch_torch import spectral
+    R, B = energy.shape
+    nseg = B // 2 + 2
+    above = energy > smoothed
+    start = above & ~F.pad(above[:, :-1], (1, 0), value=False)
+    seg = torch.where(above, torch.cumsum(start.to(torch.int64), 1) - 1,
+                      nseg - 1)
+    flat = (torch.arange(R, device=energy.device)[:, None] * nseg
+            + seg).reshape(-1)
+    b_idx = torch.arange(B, dtype=torch.float32, device=energy.device)
+    differ = torch.zeros(R * nseg, dtype=torch.bool)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for v in ((b_idx * energy).reshape(-1), energy.reshape(-1)):
+            card = torch.zeros(R * nseg, device=energy.device).index_put_(
+                (flat,), v, accumulate=True).cpu()
+            ref = spectral._segment_sums(flat, v, R * nseg).cpu()
+            differ |= card.view(torch.int32) != ref.view(torch.int32)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    differ = differ.reshape(R, nseg)[:, :-1]     # the sink slot is not read
+    return int(differ.sum())
+
+
+def check_peaks_map(energy, smoothed, controls, consts):
+    """G on the pitch+12 render's energy and smoothed curve, and on the
+    edge rows of peaks_edge_rows at the same width: input_bin and freq_grad
+    bit-equal to the plain version on a CPU copy of the inputs (each run
+    summed bin-ascending, the order of the reference and of the JAX package
+    on the CPU) and to the plain version on the card.  Reports in how many
+    run slots the card's own index_put_ sums differ from the bin-ascending
+    ones, and times G and the plain version on the card."""
+    import torch
+    from signalsmith_stretch_torch import spectral
+    from signalsmith_stretch_torch.ops import peaks
+    R, B = energy.shape
+    edge = [torch.as_tensor(a, device=DEVICE) for a in peaks_edge_rows(B)]
+    err = 0.0
+    for what, e, s in (("pitch+12 planner inputs", energy, smoothed),
+                       ("edge rows", *edge)):
+        got = peaks.peaks_and_map(e, s, controls, consts)
+        cpu = spectral._peaks_and_map(e.cpu(), s.cpu(), controls, consts)
+        card = spectral._peaks_and_map(e, s, controls, consts)
+        for name, g, c, p in zip(("input_bin", "freq_grad"), got, cpu, card):
+            err = max(err, max_abs(g.cpu(), c))
+            if not torch.equal(g.cpu(), c):
+                raise SystemExit(f"peaks_map ({what}): {name} differs from "
+                                 f"the plain version on the CPU, max abs "
+                                 f"{max_abs(g.cpu(), c)}")
+            if not torch.equal(g, p):
+                raise SystemExit(f"peaks_map ({what}): {name} differs from "
+                                 f"the plain version on the card, max abs "
+                                 f"{max_abs(g, p)}")
+        print(f"G peaks_map {what}: {tuple(e.shape)}: input_bin and "
+              f"freq_grad bit-equal to the plain version on the CPU and on "
+              f"the card; the card's own index_put_ run sums differ from the "
+              f"bin-ascending sums in {index_put_slots_differing(e, s)} of "
+              f"{e.shape[0] * (e.shape[1] // 2 + 1)} run slots (the plain "
+              f"version sums on a CPU copy)")
+
+    def run():
+        return peaks.peaks_and_map(energy, smoothed, controls, consts)
+    ms, b2b = cuda_ms(run, KERNEL_REPS), cuda_ms_b2b(run, KERNEL_REPS)
+    plain = cuda_ms(lambda: spectral._peaks_and_map(energy, smoothed,
+                                                    controls, consts),
+                    PLAIN_REPS)
+    # two inputs read and two outputs written once; the run sums' multiply
+    # and two adds for each bin above its curve, at most 17 flops a bin for
+    # the map
+    n_above = int((energy > smoothed).sum())
+    bound = bound_ms(16 * R * B, 3 * n_above + 17 * R * B)
+    print(f"G peaks_map: {ms:.4f} ms a launch alone, {b2b:.4f} ms back to "
+          f"back; plain {plain:.3f} ms; bound "
+          f"{bound[0]:.4f} ms ({bound[1]}); {n_above} of {R * B} bins above "
+          f"their curve")
+    return dict(max_abs_err=err, ms=ms, ms_b2b=b2b, plain_ms=plain,
+                bound=bound)
 
 
 def analysis_frames(cfg):
@@ -529,6 +701,17 @@ def check_formant_scans():
                          f"abs {err}")
     print(f"F top3: {tuple(x.shape)} -> 6 x [{R}]: bit-equal to the plain "
           f"version")
+    corners = top3_corner_rows()
+    for m in corners:
+        mt = torch.as_tensor(m, device=DEVICE)
+        got = scan_ops.top3_local_maxima(mt)
+        ref = spectral._top3_local_maxima(mt)
+        if not all(same_bits(g, r) for g, r in zip(got, ref)):
+            raise SystemExit(f"top3: kernel differs from the plain version "
+                             f"on the corner rows {m.shape}")
+    print(f"F top3 corner rows at B = "
+          f"{', '.join(str(m.shape[1]) for m in corners)}: bit-equal to the "
+          f"plain version (NaN for NaN, -0.0 for -0.0)")
     entries["top3"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: scan_ops.top3_local_maxima(x), KERNEL_REPS),
@@ -548,30 +731,32 @@ def check_formant_scans():
 
 def counters():
     from signalsmith_stretch_torch import wavefront
-    from signalsmith_stretch_torch.ops import dft, interp, scan_ops
+    from signalsmith_stretch_torch.ops import dft, interp, peaks, scan_ops
     return {"interp_multi": interp.launches, "sweep": wavefront.launches,
             "iir": scan_ops.launches, "dft": dft.launches,
             "decay": scan_ops.decay_launches,
-            "top3": scan_ops.top3_launches}
+            "top3": scan_ops.top3_launches, "peaks_map": peaks.launches}
 
 
 def reset_counters():
     from signalsmith_stretch_torch import wavefront
-    from signalsmith_stretch_torch.ops import dft, interp, scan_ops
+    from signalsmith_stretch_torch.ops import dft, interp, peaks, scan_ops
     interp.launches = wavefront.launches = scan_ops.launches = 0
     dft.launches = scan_ops.decay_launches = scan_ops.top3_launches = 0
+    peaks.launches = 0
 
 
 def expected_launches(flags):
-    """Kernel launches of one render: D and B always; A and the slew
-    smoothing's four passes in one launch of C when mapped; the envelope's
-    eight decay passes in one launch of E for formants; with the base
-    estimated, the top-3 scan (F) and the two freqEstimate chains over
-    blocks, stacked in one launch of C."""
+    """Kernel launches of one render: D and B always; A, the slew
+    smoothing's four passes in one launch of C and the peaks map (G) when
+    mapped; the envelope's eight decay passes in one launch of E for
+    formants; with the base estimated, the top-3 scan (F) and the two
+    freqEstimate chains over blocks, stacked in one launch of C."""
     auto = flags.process_formants and flags.formant_auto
     return {"interp_multi": int(flags.mapped), "sweep": 1,
             "iir": int(flags.mapped) + int(auto), "dft": 1,
-            "decay": int(flags.process_formants), "top3": int(auto)}
+            "decay": int(flags.process_formants), "top3": int(auto),
+            "peaks_map": int(flags.mapped)}
 
 
 def stage_split(model, audio):
@@ -598,7 +783,7 @@ def stage_split(model, audio):
 def render_vs_plain(model, audio):
     """Clips through the kernels against the same clips through the plain
     versions, both on the card, in two gates.  The spectral stage (A, B, C,
-    E and F) on the spectra of one analysis through D: bit-equal.  The
+    E, F and G) on the spectra of one analysis through D: bit-equal.  The
     whole render, D included: bit-equal, or within 12 dB of the plain
     render's own response to a 1-ulp change of its input with band
     energies within 3 dB.  Returns (passed, description)."""

@@ -35,6 +35,8 @@ ENTRY = {
     "dft": ("sst_dft", [_P] * 6 + [_I] * 4 + [_P]),
     "decay": ("sst_decay_chain", [_P] * 6 + [_I, _I, _P] + [_I] * 4 + [_P]),
     "top3": ("sst_top3", [_P] * 3 + [_I] * 2 + [_P]),
+    "peaks": ("sst_peaks_map",
+              [_P] * 4 + [_I] * 3 + [ctypes.c_float] * 3 + [_P]),
 }
 SOURCES = tuple(ENTRY)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -8,9 +8,9 @@ a batch at once, in complex64:
     (:332-376, 806-812), with the fixed-rate shortcuts (every block new,
     every block re-analysed) and the general gathers;
   - for frequency-mapped renders: cross-channel energy, the slew smoothing
-    (kernel C, its four passes in one launch), peaks and the output map,
-    and the prediction lookups at the mapped positions in one multi-set
-    interpolation (kernel A);
+    (kernel C, its four passes in one launch), peaks and the output map
+    (kernel G, one launch), and the prediction lookups at the mapped
+    positions in one multi-set interpolation (kernel A);
   - for formant renders (:970-1036): the pitch estimate (top-3 scan, kernel
     F, and the two freqEstimate chains over blocks in one launch of kernel
     C) unless a base frequency is given, the envelope's eight decay passes
@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from . import spectral
 from .config import MAX_CLEAN_STRETCH, NOISE_FLOOR
-from .ops import interp, scan_ops
+from .ops import interp, peaks, scan_ops
 
 f32 = np.float32
 
@@ -223,8 +223,10 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
         iir = scan_ops.iir_chain_plain if plain else scan_ops.iir_chain
         sm, _ = iir(energy, torch.zeros(R, dtype=torch.float32, device=dev),
                     consts.slew, (True, False, True, False))
-        input_bin, freq_grad = spectral._peaks_and_map(energy, sm, controls,
-                                                       consts)
+        # the peaks and output map in one launch (kernel G)
+        peaks_map = (spectral._peaks_and_map if plain
+                     else peaks.peaks_and_map)
+        input_bin, freq_grad = peaks_map(energy, sm, controls, consts)
         if debug:
             dbg.update(energy=energy, smoothed=sm, input_bin=input_bin,
                        freq_grad=freq_grad)

@@ -121,10 +121,16 @@ def _gather_band(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _segment_sums(index: torch.Tensor, values: torch.Tensor,
                   n: int) -> torch.Tensor:
-    """Sum values into n slots.  Deterministic accumulation: bin-ascending
-    on the CPU (the order of the reference's `+=`), a sorted, run-to-run
-    reproducible order on the card (atomics would flip low bits between
-    renders, which the chaotic phase recursion amplifies)."""
+    """Sum values into n slots, each slot's values added in index order
+    from 0 (bin-ascending, the order of the reference's `+=`): on the CPU,
+    `index_put_` with accumulate under deterministic algorithms runs
+    serially in that order.  The card's `index_put_` does not keep it for
+    every run (on an H100, one run slot of chip_smoke.peaks_edge_rows at
+    4096 bins came out otherwise than on the CPU), and the chaotic phase
+    recursion turns a flipped low bit into another render, so a CUDA
+    tensor's sums are taken on a CPU copy."""
+    if values.device.type != "cpu":
+        return _segment_sums(index.cpu(), values.cpu(), n).to(values.device)
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:

@@ -6,15 +6,18 @@ without JAX run them without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances.  Kernels A, B, C, E and F: bit equality.  They are built with
---fmad=false and IEEE division and square root, so they round at the same
-points as the plain versions, which are written as separate float32
-PyTorch ops.  Kernel D, the analysis DFT, is one half-length complex FFT
-per frame (a mixed-radix Stockham FFT in shared memory) held to its plain
-version (cuFFT) at 3e-6 of the spectrum's peak magnitude, the JAX package's
-gate between its matmul DFT and its FFT (tests/test_stft.py:79).
+Tolerances.  Kernels A, B, C, E, F and G: bit equality.  They are built
+with --fmad=false and IEEE division and square root, so they round at the
+same points as the plain versions, which are written as separate float32
+PyTorch ops.  G (the peaks map) is also held to its plain version on a CPU
+copy of its inputs, whose runs are summed bin-ascending as in the
+reference and in the JAX package on the CPU.  Kernel D, the analysis DFT,
+is one half-length complex FFT per frame (a mixed-radix Stockham FFT in
+shared memory) held to its plain version (cuFFT) at 3e-6 of the
+spectrum's peak magnitude, the JAX package's gate between its matmul DFT
+and its FFT (tests/test_stft.py:79).
 Renders (`chip_smoke.render_vs_plain`, the gate of chip_smoke.py): the
-spectral stage through A, B, C, E and F on the spectra of one analysis
+spectral stage through A, B, C, E, F and G on the spectra of one analysis
 through D is bit-equal to its plain version; the whole render goes through
 D, so it is bit-equal to the plain render or, failing that, within 12 dB
 of the plain render's own response to a 1-ulp change of its input, with
@@ -243,3 +246,87 @@ def test_top3_kernel_matches_plain(dev):
     ref = scan_ops.spectral._top3_local_maxima(_t(m, dev))
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+def test_top3_kernel_corner_rows(dev):
+    """The corners of the lane merge (chip_smoke.top3_corner_rows): NaN at
+    bin 0 and NaN maxima, -0.0/+0.0 ties, infinities, plateaus, equal
+    peaks, B = 3 and B not a multiple of four: bit-equal, NaN for NaN."""
+    for m in chip_smoke.top3_corner_rows():
+        got = scan_ops.top3_local_maxima(_t(m, dev))
+        ref = scan_ops.spectral._top3_local_maxima(_t(m, dev))
+        assert all(chip_smoke.same_bits(g, r) for g, r in zip(got, ref))
+    # a view one float off 16-byte alignment takes the scalar loads
+    m = chip_smoke.top3_corner_rows()[3]
+    flat = _t(np.concatenate([[0], m.ravel()]).astype(np.float32), dev)
+    view = flat[1:].view(m.shape)
+    got = scan_ops.top3_local_maxima(view)
+    ref = scan_ops.spectral._top3_local_maxima(view)
+    assert all(chip_smoke.same_bits(g, r) for g, r in zip(got, ref))
+
+
+def _mapped_model(dev, channels=2):
+    rate, n = 8000, 16000
+    return StretchModel.build(channels=channels, sample_rate=rate,
+                              in_samples=n, out_samples=n, semitones=12,
+                              tonality_hz=2000, device=dev), rate, n
+
+
+@pytest.mark.parametrize("source", ["render", "edge_rows_512",
+                                    "edge_rows_1000", "edge_rows_4096",
+                                    "edge_rows_8192"])
+def test_peaks_kernel_matches_cpu(dev, source):
+    """G on the card against the plain peaks map on a CPU copy of its
+    inputs (each run summed bin-ascending, the reference's order and the
+    JAX package's on the CPU), bit for bit; the plain version on the card
+    against the same.  Inputs: a mapped render's energy and smoothed curve
+    (8 kHz stereo, +12 semitones), or the edge rows and random rows of
+    chip_smoke.peaks_edge_rows at B = 512, 1000, 4096 and 8192 (the 96 kHz
+    preset's bands, whose shared memory passes 48 KB)."""
+    from signalsmith_stretch_torch import engine, planner, spectral
+    from signalsmith_stretch_torch.ops import peaks
+    model, rate, n = _mapped_model(dev)
+    if source == "render":
+        rng = np.random.default_rng(8)
+        t = np.arange(n) / rate
+        clip = np.stack([0.4 * np.sin(2 * np.pi * 165 * t + c)
+                         + 0.02 * rng.standard_normal(n) for c in range(2)])
+        spectra, prev = engine.analyze_stage(
+            _t(clip[None].astype(np.float32), dev), model.plan)
+        _, dbg = planner.plan_spectral(spectra, prev, model.plan.arrays,
+                                       model.controls, model.flags,
+                                       model.plan.consts, plain=True,
+                                       debug=True)
+        e, s = dbg["energy"], dbg["smoothed"]
+    else:
+        e, s = (_t(a, dev) for a in chip_smoke.peaks_edge_rows(
+            int(source.rsplit("_", 1)[1])))
+    args = (model.controls, model.plan.consts)
+    got = peaks.peaks_and_map(e, s, *args)
+    cpu = spectral._peaks_and_map(e.cpu(), s.cpu(), *args)
+    card = spectral._peaks_and_map(e, s, *args)
+    for g, c, p in zip(got, cpu, card):
+        assert torch.equal(g.cpu(), c)
+        assert torch.equal(p.cpu(), c)
+
+
+def test_planner_launches(dev):
+    """The mapped planner launches G once (and A and C once each); with
+    plain=True it launches no kernel."""
+    from signalsmith_stretch_torch import engine, planner, wavefront
+    from signalsmith_stretch_torch.ops import peaks
+    model, _, n = _mapped_model(dev)
+    clip = _t(np.random.default_rng(9).standard_normal((1, 2, n))
+              .astype(np.float32) * 0.1, dev)
+    spectra, prev = engine.analyze_stage(clip, model.plan)
+    args = (spectra, prev, model.plan.arrays, model.controls, model.flags,
+            model.plan.consts)
+    for plain, want in ((True, 0), (False, 1)):
+        chip_smoke.reset_counters()
+        planner.plan_spectral(*args, plain=plain)
+        torch.cuda.synchronize()
+        counts = chip_smoke.counters()
+        assert counts["peaks_map"] == counts["interp_multi"] == want
+        assert counts["iir"] == want and peaks.launches == want
+        assert sum(counts.values()) == 3 * want
+    assert wavefront.launches == 0

@@ -320,6 +320,29 @@ def test_formant_render_matches_jax(stereo_signal, case):
     assert rel_err_db(got, ref) < -100
 
 
+@pytest.mark.parametrize("part", ["freq_estimate", "render"])
+def test_three_channel_auto_base_matches_jax(stereo_signal, part):
+    """The auto-base formant path at 3 channels (the fixture with a third
+    channel made from it): the freqEstimate chains at 1e-6 of their largest
+    magnitude, the render within -100 dB of JAX's."""
+    from test_torch_planner import more_channels
+    sig, rate = stereo_signal
+    sig = more_channels(sig, 3)
+    if part == "freq_estimate":
+        dbg, jdbg, model, _ = _plan_both(sig, rate, "auto_base")
+        assert model.flags.formant_auto and model.plan.consts.channels == 3
+        for k in ("freq_estimate_weighted", "freq_weight"):
+            got = dbg[k][0].numpy().astype(np.float64)
+            ref = np.asarray(jdbg[k])
+            assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max(), k
+    else:
+        model, jm = _models(sig, rate, "auto_base")
+        got = model(sig).numpy()
+        ref = np.asarray(jax.jit(jm.__call__)(jnp.asarray(sig)))
+        assert got.shape == ref.shape == sig.shape
+        assert rel_err_db(got, ref) < -100
+
+
 def test_formant_pitch_render_chaos_relative(stereo_signal):
     sig, rate = stereo_signal
     model, jm = _models(sig, rate, "pitch_comp")

@@ -4,7 +4,8 @@ The same spectra (the JAX analysis of the 8 kHz stereo fixture) go through
 JAX `plan_spectral` (complex mode, run op by op, gather interpolation as on
 the CPU) and the port's `plan_spectral`; the SweepInputs are compared leaf
 by leaf, unmapped and mapped (+12 semitones with a tonality limit), on the
-fixed-rate schedules and on one whose blocks are mostly not re-analysed.
+fixed-rate schedules and on one whose blocks are mostly not re-analysed,
+and mapped at 3 and 4 channels (the fixture with channels added).
 
 Tolerance: reassociation.  Every leaf within 1e-6 of its largest magnitude:
 torch and XLA round a complex product's real and imaginary parts in
@@ -43,8 +44,9 @@ def _models(sig, rate, case):
     n = sig.shape[1]
     out = int(round(n * ratio))
     kw = dict(semitones=semis, tonality_hz=ton)
-    return (StretchModel.build(2, rate, n, out, device="cpu", **kw),
-            JModel.build(2, rate, n, out, **kw))
+    ch = sig.shape[0]
+    return (StretchModel.build(ch, rate, n, out, device="cpu", **kw),
+            JModel.build(ch, rate, n, out, **kw))
 
 
 def _leaves(inp, batch_index=None):
@@ -104,6 +106,40 @@ def test_mapped_intermediates_match_jax(stereo_signal, case):
     for k in ("energy", "smoothed", "input_bin", "freq_grad"):
         got = dbg[k].numpy().reshape(np.shape(jdbg[k]))
         _close(got, np.asarray(jdbg[k]), k)
+
+
+def more_channels(sig, channels):
+    """The stereo fixture with channels added: channel c >= 2 is channel
+    c % 2 rolled by 37*c samples and scaled by 1 - 0.15*c."""
+    extra = [np.roll(sig[c % 2], 37 * c) * np.float32(1 - 0.15 * c)
+             for c in range(2, channels)]
+    return np.concatenate([sig, np.stack(extra)]).astype(np.float32)
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("case", ["pitch+12_1.0", "pitch+12_1.25"])
+def test_multichannel_mapped_planner_matches_jax(stereo_signal, case,
+                                                 channels):
+    """The mapped planner at 3 and 4 channels: the cross-channel energy,
+    summed in channel order here and by jnp.sum over the channel axis in
+    the JAX package, bit-equal; its smoothing, the peaks and output map and
+    every SweepInputs leaf at the file's tolerance."""
+    sig, rate = stereo_signal
+    sig = more_channels(sig, channels)
+    (got, dbg), (ref, jdbg), model = _plan_both(sig, rate, case, debug=True)
+    assert model.flags.mapped and len(got.pe) == channels
+    np.testing.assert_array_equal(
+        dbg["energy"].numpy().reshape(np.shape(jdbg["energy"])),
+        np.asarray(jdbg["energy"]))
+    for k in ("smoothed", "input_bin", "freq_grad"):
+        _close(dbg[k].numpy().reshape(np.shape(jdbg[k])), np.asarray(jdbg[k]),
+               k)
+    g, r = _leaves(got, 0), _leaves(ref)
+    assert g.keys() == r.keys()
+    np.testing.assert_array_equal(g["mc"], r["mc"])
+    for k in g:
+        if k != "mc":
+            _close(g[k], r[k], k)
 
 
 def test_planner_is_per_clip(stereo_signal):

@@ -15,6 +15,12 @@ csrc/chain.cuh follows) is replayed on the CPU by `walk_model`, which
 checks every slot and copy hazard and is held bit-equal to the plain
 chain; its tile layout's shared-memory bank conflicts are counted in a
 model of the warps' accesses.
+
+The top-3 kernel (csrc/top3.cu, kernel F) is modelled by
+`top3_merge_model`: its lane partition, each lane's insertion ladder, the
+neighbours it takes from the lanes beside it and the butterfly merge of
+the lanes' lists, held bit-equal (NaN for NaN, -0.0 for -0.0) to the plain
+loop and to JAX at the kernel's lane width and at others.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +29,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import chip_smoke  # noqa: E402
+from signalsmith_stretch_torch import spectral  # noqa: E402
 from signalsmith_stretch_torch.config import StretchConfig  # noqa: E402
 from signalsmith_stretch_torch.ops import scan_ops  # noqa: E402
 from signalsmith_stretch_torch.spectral import SpectralConsts  # noqa: E402
@@ -280,3 +288,113 @@ def test_chain_tile_layout_is_conflict_free():
         words = [(c // T) * pitch + c % T for c in range(c0, c0 + 32)]
         assert _wavefronts(words, 1) == 1
     assert _wavefronts([r * pitch + 5 for r in range(32)], 1) == 4
+
+
+def _better(a, b):
+    """(value, bin) a ranks above b: larger value, then earlier bin."""
+    return a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])
+
+
+def _merge3(a, b):
+    """The top three of two best-first lists of three, as the kernel's
+    merge step takes them: b's head only when it ranks above a's."""
+    a, b, out = list(a), list(b), []
+    for _ in range(3):
+        out.append(b.pop(0) if _better(b[0], a[0]) else a.pop(0))
+    return out
+
+
+def top3_merge_model(m, lanes=32, width=4, group=4):
+    """Kernel F (csrc/top3.cu) on the CPU: per row, lane L holds `width`
+    consecutive bins of each chunk of lanes*width, `group` chunks a step;
+    loads past the row read 0; a bin's left neighbour across a lane edge is
+    the previous lane's last (lane 0: the previous chunk's last bin), its
+    right neighbour the next lane's first (the last lane: the next chunk's
+    first); each lane runs the insertion ladder over its bins in ascending
+    order from (0, m[0]), then a butterfly over lane offsets lanes/2 .. 1
+    merges the lists.  m [R, B] float32 -> (i0, v0, i1, v1, i2, v2) numpy."""
+    m = np.asarray(m, np.float32)
+    R, B = m.shape
+    chunk = lanes * width
+    span = group * chunk
+    padded = np.zeros((R, -(-B // span) * span + span), np.float32)
+    padded[:, :B] = m
+    out = [np.zeros(R, t) for t in (np.int32, np.float32) * 3]
+    for r in range(R):
+        row = padded[r]
+        m0 = row[0]
+        state = [[(m0, 0)] * 3 for _ in range(lanes)]    # worst first
+        carry = np.float32(0)
+        for base in range(0, B, span):
+            for g in range(group):
+                c0 = base + g * chunk
+                vals = row[c0:c0 + chunk].reshape(lanes, width)
+                after = row[c0 + chunk]        # lane 0's first of the next
+                for lane in range(lanes):
+                    left = vals[lane - 1, -1] if lane else carry
+                    right = vals[lane + 1, 0] if lane < lanes - 1 else after
+                    (v0, i0), (v1, i1), (v2, i2) = state[lane]
+                    for j in range(width):
+                        b = c0 + lane * width + j
+                        e = vals[lane, j]
+                        ep = vals[lane, j - 1] if j else left
+                        en = vals[lane, j + 1] if j + 1 < width else right
+                        is_max = (1 <= b <= B - 2 and not e < ep
+                                  and not e <= en)
+                        s0 = is_max and e > v0
+                        s1 = s0 and e > v1
+                        s2 = s1 and e > v2
+                        n0 = (v1, i1) if s1 else (e, b) if s0 else (v0, i0)
+                        n1 = (v2, i2) if s2 else (e, b) if s1 else (v1, i1)
+                        v2, i2 = (e, b) if s2 else (v2, i2)
+                        (v0, i0), (v1, i1) = n0, n1
+                    state[lane] = [(v0, i0), (v1, i1), (v2, i2)]
+                carry = vals[-1, -1]
+        lists = [s[::-1] for s in state]                 # best first
+        o = lanes // 2
+        while o:
+            lists = [_merge3(lists[L], lists[L ^ o]) for L in range(lanes)]
+            o //= 2
+        assert all(lst == lists[0] for lst in lists)     # every lane agrees
+        for k, (v, i) in enumerate(lists[0][::-1]):
+            out[2 * k][r], out[2 * k + 1][r] = i, v
+    return tuple(out)
+
+
+def _top3_sets(name):
+    from test_torch_formant import _metric_rows
+    if name == "metric_rows":
+        return [_metric_rows(5), _metric_rows(11, rows=6, bins=517)]
+    if name == "corner_rows":
+        return chip_smoke.top3_corner_rows()
+    rng = np.random.default_rng(12)             # random rows, ragged B
+    sets = []
+    for B in (3, 4, 129, 255, 1000):
+        m = rng.exponential(1.0, (5, B)).astype(np.float32)
+        m[1] = np.round(m[1] * 2) / 2             # ties
+        sets.append(m)
+    return sets
+
+
+def _bits(x):
+    x = np.asarray(x)
+    return x.view(np.int32) if x.dtype == np.float32 else x
+
+
+@pytest.mark.parametrize("data", ["metric_rows", "corner_rows", "random"])
+@pytest.mark.parametrize("lanes,width,group", [
+    (32, 4, 4), (32, 1, 4), (16, 4, 2), (8, 2, 3), (1, 1, 1)],
+    ids=["kernel_vec", "kernel_scalar", "l16w4g2", "l8w2g3", "serial"])
+def test_top3_merge_model_matches_plain_and_jax(data, lanes, width, group):
+    """The kernel's lane partition and merge (csrc/top3.cu at 32 lanes,
+    float4 or scalar loads; other partitions; one lane, the serial loop)
+    against the plain loop and JAX's lax.scan, bit for bit, on the formant
+    tests' metric rows, the corner rows of chip_smoke.top3_corner_rows and
+    random rows at ragged B."""
+    for m in _top3_sets(data):
+        got = top3_merge_model(m, lanes, width, group)
+        plain = spectral._top3_local_maxima(torch.as_tensor(m))
+        ref = jspectral._top3_local_maxima(jnp.asarray(m))
+        for g, p, r in zip(got, plain, ref):
+            np.testing.assert_array_equal(_bits(g), _bits(p.numpy()))
+            np.testing.assert_array_equal(_bits(g), _bits(r))

@@ -12,8 +12,9 @@ torch.profiler, with a synchronise at both ends.  Per stage it prints the
 host wall time, the device busy time (the sum of kernel and copy times on
 the card, which run on one stream and do not overlap), the idle share
 (1 - busy / wall), the number of kernels, host-to-device copies and stream
-synchronisations, and the kernels that took the most device time.  With
---out, the same lines also go to that file.
+synchronisations, the kernels that took the most device time, and the
+device time of each of the port's own kernels (csrc/).  With --out, the
+same lines also go to that file.
 """
 from __future__ import annotations
 
@@ -28,6 +29,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
+
+# the __global__ functions of csrc/ (unstage_kernel matches stage_kernel)
+PORT_KERNELS = ("interp_multi_kernel", "stage_kernel", "sweep_kernel",
+                "chain_kernel", "dft_kernel", "top3_kernel",
+                "peaks_map_kernel")
 
 
 def _events(prof, kind):
@@ -69,6 +75,11 @@ def _summary(name, wall, prof, top=6):
              f"{h2d} host-to-device copies, {syncs} synchronise calls"]
     for k, ms in by_name.most_common(top):
         lines.append(f"      {ms:9.3f} ms  {k[:110]}")
+    port = [(k.split("(")[0].removeprefix("void "), ms)
+            for k, ms in by_name.items() if any(p in k for p in PORT_KERNELS)]
+    if port:
+        lines.append("    the port's kernels: " + ", ".join(
+            f"{k} {ms:.3f} ms" for k, ms in sorted(port)))
     return lines
 
 
