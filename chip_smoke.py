@@ -13,14 +13,17 @@ Phases, in order; any failure exits non-zero before the last line:
      analysis DFT (D) on the 1.25x render's frames, within 3e-6 of the
      spectrum's peak of the plain analysis (cuFFT); on the pitch+12
      configuration's planner inputs the interp kernel (A) in lerp and taps
-     mode, the slew scan (C: the smoothing's four passes in one launch, and
-     one pass each way), the peaks and output map (G, also on edge rows,
-     and against the plain version on a CPU copy of its inputs: each run
-     summed bin-ascending) and the diagonal sweep (B); on the auto-base
-     formant configuration's metric the decay scans (E: the envelope's
-     eight passes in one launch, and each single pass) and the top-3 scan
-     (F, also on corner rows); every kernel but D bit-equal, C and E in
-     their outputs and final values.  C, E and F are also timed on one
+     mode, on G's stacked positions and on the list form, the slew scan
+     (C: the smoothing's four passes in one launch, and one pass each way),
+     the peaks and output map (G: its four planes, the three position sets
+     and the gradient, also on edge rows at four widths, and against the
+     plain version on a CPU copy of its inputs: each run summed
+     bin-ascending; its time split by phase through its timed entry, and
+     its device time in a render) and the diagonal sweep (B); on the
+     auto-base formant configuration's metric the decay scans (E: the
+     envelope's eight passes in one launch, and each single pass) and the
+     top-3 scan (F, also on corner rows); every kernel but D bit-equal, C
+     and E in their outputs and final values.  C, E and F are also timed on one
      row (`chain_ms`): for C and E one lane runs the whole chain, the
      card's own serial floor for that work; for F one warp;
   4. renders of stereo48k_default_1.25x, stereo48k_pitch+12_tonality8k,
@@ -340,12 +343,16 @@ def check_kernels():
     torch.cuda.synchronize()
     entries = {}
 
-    # --- A: interp_multi, lerp (the main path's call) and taps ------------
+    # --- A: interp_multi on G's stacked positions (the main path's call),
+    # and on the list form, lerp and taps ----------------------------------
     planes, pos_sets = dbg["interp"]
+    pos = dbg["pos"]
     taps_sets = [(p, n, True) for p, n, _ in pos_sets]
     err = 0.0
-    for sets, mode in ((pos_sets, "lerp"), (taps_sets, "taps")):
-        got, viol = interp.interp_multi(planes, sets)
+    for sets, stacked, mode in ((pos_sets, pos, "lerp, stacked positions"),
+                                (pos_sets, None, "lerp"),
+                                (taps_sets, None, "taps")):
+        got, viol = interp.interp_multi(planes, sets, pos=stacked)
         ref, _ = interp.interp_multi_plain(planes, sets)
         for g, r in zip(got, ref):
             g = g if isinstance(g, tuple) else (g,)
@@ -364,8 +371,9 @@ def check_kernels():
     rows, n, W0 = planes.shape
     B = pos_sets[0][0].shape[1]
     nout = sum(ns for _, ns, _ in pos_sets)
-    ms = cuda_ms(lambda: interp.interp_multi(planes, pos_sets), KERNEL_REPS)
-    b2b = cuda_ms_b2b(lambda: interp.interp_multi(planes, pos_sets),
+    ms = cuda_ms(lambda: interp.interp_multi(planes, pos_sets, pos=pos),
+                 KERNEL_REPS)
+    b2b = cuda_ms_b2b(lambda: interp.interp_multi(planes, pos_sets, pos=pos),
                       KERNEL_REPS)
     plain = cuda_ms(lambda: interp.interp_multi_plain(planes, pos_sets), 3)
     nbytes = 4 * (rows * n * W0 + rows * len(pos_sets) * B + rows * nout * B)
@@ -376,7 +384,7 @@ def check_kernels():
 
     entries["iir"] = check_slew_scan(dbg["energy"], plan.consts.slew)
     entries["peaks_map"] = check_peaks_map(dbg["energy"], dbg["smoothed"],
-                                           model.controls, plan.consts)
+                                           *dbg["shifts"], model, audio)
 
     # --- B: the diagonal sweep --------------------------------------------
     longv = plan.consts.long_vertical_step
@@ -507,59 +515,152 @@ def index_put_slots_differing(energy, smoothed):
     return int(differ.sum())
 
 
-def check_peaks_map(energy, smoothed, controls, consts):
-    """G on the pitch+12 render's energy and smoothed curve, and on the
-    edge rows of peaks_edge_rows at the same width: input_bin and freq_grad
-    bit-equal to the plain version on a CPU copy of the inputs (each run
-    summed bin-ascending, the order of the reference and of the JAX package
-    on the CPU) and to the plain version on the card.  Reports in how many
-    run slots the card's own index_put_ sums differ from the bin-ascending
-    ones, and times G and the plain version on the card."""
+def phase_split(stamps_fn, phases, R, what, reps=5):
+    """Summarise a timed entry's stamps (stamps_fn() -> [CTAs, len(phases)
+    + 3] int64 on the card: each phase's clock64() cycles summed over the
+    CTA's rows, its start and end on the global timer in ns, its SM) over
+    R rows, the run of `reps` with the median span: for each phase the
+    share of the CTAs' cycles and the mean cycles a row; the kernel's span,
+    the mean lifetime of a CTA, the mean number of CTAs resident (their
+    lifetimes over the span) and the SM clock the stamps imply.  Prints
+    them after `what` and returns them as a dict."""
     import torch
-    from signalsmith_stretch_torch import spectral
+    P = len(phases)
+    runs = []
+    for _ in range(reps + 1):                      # the first one warms up
+        runs.append(stamps_fn().cpu().numpy().astype(np.float64))
+    spans = [r[:, P + 1].max() - r[:, P].min() for r in runs[1:]]
+    st = runs[1 + int(np.argsort(spans)[len(spans) // 2])]
+    cyc = st[:, :P]
+    life = st[:, P + 1] - st[:, P]
+    span = st[:, P + 1].max() - st[:, P].min()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split = dict(zip(phases, (cyc.sum(0) / cyc.sum()).tolist()))
+    out = dict(phases=split,
+               cycles_a_row={k: float(v) for k, v in
+                             zip(phases, cyc.sum(0) / R)},
+               span_us=span / 1e3, cta_us=float(life.mean()) / 1e3,
+               ctas=int(st.shape[0]), resident=float(life.sum() / span),
+               ghz=float(cyc.sum() / life.sum()))
+    print(f"{what} ({R} rows, {out['ctas']} CTAs, timed entry): " + ", ".join(
+        f"{k} {100 * v:.1f}% ({out['cycles_a_row'][k]:.0f} cycles a row)"
+        for k, v in split.items())
+          + f"; span {out['span_us']:.1f} us, a CTA lives "
+          f"{out['cta_us']:.2f} us, {out['resident']:.1f} CTAs resident on "
+          f"average ({out['resident'] / sms:.2f} an SM of {sms}), clock "
+          f"{out['ghz']:.2f} GHz")
+    return out
+
+
+def peaks_phase_split(energy, smoothed, tf, ltf, controls, consts, reps=5):
+    """G's timed entry (csrc/peaks.cu STAMP, never on the main path) on the
+    given rows, summarised by phase_split."""
     from signalsmith_stretch_torch.ops import peaks
+    return phase_split(
+        lambda: peaks.phase_stamps(energy, smoothed, tf, ltf, controls,
+                                   consts),
+        peaks.PHASES, energy.shape[0],
+        f"G phase split {tuple(energy.shape)}", reps)
+
+
+def profiled(fn):
+    """Run fn() once under torch.profiler between two synchronises.
+    Returns (result, wall ms, profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return out, wall, prof
+
+
+def profiler_events(prof, kind):
+    """The profiler's events on the "CUDA" or "CPU" side."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events()
+            if e.device_type == getattr(DeviceType, kind)]
+
+
+def render_kernel_ms(model, audio, kernel):
+    """Device ms of the kernels whose name holds `kernel` in one render of
+    audio by model, under torch.profiler (after one render to warm up)."""
+    model.batched(audio)
+    _, _, prof = profiled(lambda: model.batched(audio))
+    return sum(e.time_range.elapsed_us() for e in profiler_events(prof, "CUDA")
+               if kernel in e.name) / 1e3
+
+
+def check_peaks_map(energy, smoothed, tf, ltf, model, audio):
+    """G on the pitch+12 render's energy, smoothed curve and time factors,
+    and on the edge rows of peaks_edge_rows at B = 512, 1000, 4096 and 8192
+    (the 96 kHz preset's bands): its four planes (the position sets input
+    bin, input bin - tf and input bin - ltf, and freq_grad) bit-equal to
+    the plain version on a CPU copy of the inputs (each run summed
+    bin-ascending, the order of the reference and of the JAX package on the
+    CPU) and to the plain version on the card.  Reports in how many run
+    slots the card's own index_put_ sums differ from the bin-ascending
+    ones; times G alone, back to back and inside a render, and the plain
+    version; splits G's time by phase (its timed entry)."""
+    import torch
+    from signalsmith_stretch_torch.ops import peaks
+    controls, consts = model.controls, model.plan.consts
     R, B = energy.shape
-    edge = [torch.as_tensor(a, device=DEVICE) for a in peaks_edge_rows(B)]
+    cases = [("pitch+12 planner inputs", energy, smoothed, tf, ltf)]
+    for width in (512, 1000, 4096, 8192):
+        e, s = (torch.as_tensor(a, device=DEVICE)
+                for a in peaks_edge_rows(width))
+        cases.append((f"edge rows at B = {width}", e, s, tf[:e.shape[0]],
+                       ltf[:e.shape[0]]))
+    planes = ("input bin", "input bin - tf", "input bin - ltf", "freq_grad")
     err = 0.0
-    for what, e, s in (("pitch+12 planner inputs", energy, smoothed),
-                       ("edge rows", *edge)):
-        got = peaks.peaks_and_map(e, s, controls, consts)
-        cpu = spectral._peaks_and_map(e.cpu(), s.cpu(), controls, consts)
-        card = spectral._peaks_and_map(e, s, controls, consts)
-        for name, g, c, p in zip(("input_bin", "freq_grad"), got, cpu, card):
+    for what, e, s, t1, t2 in cases:
+        args = (controls, consts)
+        got = peaks.peaks_positions(e, s, t1, t2, *args)
+        cpu = peaks.peaks_positions_plain(e.cpu(), s.cpu(), t1.cpu(),
+                                          t2.cpu(), *args)
+        card = peaks.peaks_positions_plain(e, s, t1, t2, *args)
+        for name, g, c, p in zip(planes, [*got[0].unbind(1), got[1]],
+                                 [*cpu[0].unbind(1), cpu[1]],
+                                 [*card[0].unbind(1), card[1]]):
             err = max(err, max_abs(g.cpu(), c))
-            if not torch.equal(g.cpu(), c):
+            if not same_bits(g.cpu(), c):
                 raise SystemExit(f"peaks_map ({what}): {name} differs from "
                                  f"the plain version on the CPU, max abs "
                                  f"{max_abs(g.cpu(), c)}")
-            if not torch.equal(g, p):
+            if not same_bits(g, p):
                 raise SystemExit(f"peaks_map ({what}): {name} differs from "
                                  f"the plain version on the card, max abs "
                                  f"{max_abs(g, p)}")
-        print(f"G peaks_map {what}: {tuple(e.shape)}: input_bin and "
-              f"freq_grad bit-equal to the plain version on the CPU and on "
-              f"the card; the card's own index_put_ run sums differ from the "
+        print(f"G peaks_map {what}: {tuple(e.shape)}: the four planes "
+              f"bit-equal to the plain version on the CPU and on the card; "
+              f"the card's own index_put_ run sums differ from the "
               f"bin-ascending sums in {index_put_slots_differing(e, s)} of "
               f"{e.shape[0] * (e.shape[1] // 2 + 1)} run slots (the plain "
               f"version sums on a CPU copy)")
 
-    def run():
-        return peaks.peaks_and_map(energy, smoothed, controls, consts)
-    ms, b2b = cuda_ms(run, KERNEL_REPS), cuda_ms_b2b(run, KERNEL_REPS)
-    plain = cuda_ms(lambda: spectral._peaks_and_map(energy, smoothed,
-                                                    controls, consts),
-                    PLAIN_REPS)
-    # two inputs read and two outputs written once; the run sums' multiply
+    args = (energy, smoothed, tf, ltf, controls, consts)
+    split = peaks_phase_split(*args)
+    ms = cuda_ms(lambda: peaks.peaks_positions(*args), KERNEL_REPS)
+    b2b = cuda_ms_b2b(lambda: peaks.peaks_positions(*args), KERNEL_REPS)
+    in_render = render_kernel_ms(model, audio, "peaks_map_kernel")
+    plain = cuda_ms(lambda: peaks.peaks_positions_plain(*args), PLAIN_REPS)
+    # two inputs read and four planes written once; the run sums' multiply
     # and two adds for each bin above its curve, at most 17 flops a bin for
-    # the map
+    # the map and two subtractions
     n_above = int((energy > smoothed).sum())
-    bound = bound_ms(16 * R * B, 3 * n_above + 17 * R * B)
+    bound = bound_ms(24 * R * B, 3 * n_above + 19 * R * B)
+    two_planes = bound_ms(16 * R * B, 3 * n_above + 17 * R * B)
     print(f"G peaks_map: {ms:.4f} ms a launch alone, {b2b:.4f} ms back to "
-          f"back; plain {plain:.3f} ms; bound "
-          f"{bound[0]:.4f} ms ({bound[1]}); {n_above} of {R * B} bins above "
-          f"their curve")
+          f"back, {in_render:.4f} ms of device time in a pitch+12 render; "
+          f"plain {plain:.3f} ms; bound {bound[0]:.4f} ms ({bound[1]}: four "
+          f"planes out; two planes out, {two_planes[0]:.4f}); "
+          f"{n_above} of {R * B} bins above their curve")
     return dict(max_abs_err=err, ms=ms, ms_b2b=b2b, plain_ms=plain,
-                bound=bound)
+                bound=bound, render_ms=in_render, phases=split["phases"])
 
 
 def analysis_frames(cfg):

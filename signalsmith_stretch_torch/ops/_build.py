@@ -24,21 +24,24 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-# each source's C entry point and its argument types; every entry point
-# returns the cudaError_t of its launch
+# each C entry point by name: its source csrc/<source>.cu, its symbol and its
+# argument types; every entry point returns the cudaError_t of its launch
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY = {
-    "interp": ("sst_interp_multi", [_P] * 4 + [_I] * 6 + [_P]),
-    "sweep": ("sst_sweep", [_P] * 4 + [_I] * 7 + [_P]),
-    "scan": ("sst_iir_chain",
+    "interp": ("interp", "sst_interp_multi", [_P] * 4 + [_I] * 6 + [_P]),
+    "sweep": ("sweep", "sst_sweep", [_P] * 4 + [_I] * 7 + [_P]),
+    "scan": ("scan", "sst_iir_chain",
              [_P] * 4 + [_I, _I, ctypes.c_float, _P] + [_I] * 4 + [_P]),
-    "dft": ("sst_dft", [_P] * 6 + [_I] * 4 + [_P]),
-    "decay": ("sst_decay_chain", [_P] * 6 + [_I, _I, _P] + [_I] * 4 + [_P]),
-    "top3": ("sst_top3", [_P] * 3 + [_I] * 2 + [_P]),
-    "peaks": ("sst_peaks_map",
-              [_P] * 4 + [_I] * 3 + [ctypes.c_float] * 3 + [_P]),
+    "dft": ("dft", "sst_dft", [_P] * 6 + [_I] * 4 + [_P]),
+    "decay": ("decay", "sst_decay_chain",
+              [_P] * 6 + [_I, _I, _P] + [_I] * 4 + [_P]),
+    "top3": ("top3", "sst_top3", [_P] * 3 + [_I] * 2 + [_P]),
+    "peaks": ("peaks", "sst_peaks_map",
+              [_P] * 6 + [_I] * 4 + [ctypes.c_float] * 3 + [_P]),
+    "peaks_timed": ("peaks", "sst_peaks_map_timed",
+                    [_P] * 6 + [_I] * 4 + [ctypes.c_float] * 3 + [_P] * 2),
 }
-SOURCES = tuple(ENTRY)
+SOURCES = tuple(dict.fromkeys(source for source, _, _ in ENTRY.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -95,11 +98,11 @@ def build(names=SOURCES) -> dict:
 
 
 def entry(name: str):
-    """The C entry point of csrc/<name>.cu, built and loaded on first use."""
+    """The C entry point `name` of ENTRY, built and loaded on first use."""
     if name not in _entries:
-        build([name])
-        symbol, argtypes = ENTRY[name]
-        fn = getattr(ctypes.CDLL(str(_target(name)[1])), symbol)
+        source, symbol, argtypes = ENTRY[name]
+        build([source])
+        fn = getattr(ctypes.CDLL(str(_target(source)[1])), symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         _entries[name] = fn
     return _entries[name]

@@ -54,11 +54,26 @@ def interp_multi_plain(planes: torch.Tensor, pos_sets):
     return results, 0
 
 
-def interp_multi(planes: torch.Tensor, pos_sets):
+def _is_stacked(pos: torch.Tensor, pos_sets) -> bool:
+    """pos is contiguous [rows, len(pos_sets), B] and pos[:, k] is the very
+    tensor of set k (same storage, shape and strides)."""
+    if not (pos.is_contiguous() and pos.dim() == 3
+            and pos.shape[1] == len(pos_sets)):
+        return False
+    return all(p.data_ptr() == pos[:, k].data_ptr()
+               and p.shape == pos[:, k].shape
+               and p.stride() == pos[:, k].stride()
+               for k, (p, _, _) in enumerate(pos_sets))
+
+
+def interp_multi(planes: torch.Tensor, pos_sets, pos=None):
     """planes [rows, n, W0] f32; pos_sets: list of (pos [rows, B] f32, nsel,
     taps).  Returns (per-set results, violations): set k gives [rows, nsel, B]
     (lerp) or a (lo, hi) pair of them (taps).  There is no capacity window
-    on this card, so violations is always 0."""
+    on this card, so violations is always 0.  pos, if given, is the sets'
+    positions already stacked, a contiguous [rows, len(pos_sets), B] f32
+    tensor whose slice pos[:, k] is set k's (kernel G writes them so): the
+    kernel reads it as it is, with no stack."""
     global launches
     if planes.device.type == "cpu":
         return interp_multi_plain(planes, pos_sets)
@@ -66,7 +81,12 @@ def interp_multi(planes: torch.Tensor, pos_sets):
         raise ValueError(f"interp_multi: 1..{MAX_SETS} position sets expected")
     rows, n, W0 = planes.shape
     B = pos_sets[0][0].shape[1]
-    pos = torch.stack([p for p, _, _ in pos_sets], 1).contiguous()
+    if pos is None:
+        pos = torch.stack([p for p, _, _ in pos_sets], 1).contiguous()
+    elif not _is_stacked(pos, pos_sets):
+        raise ValueError("interp_multi: pos must be a contiguous [rows, sets, "
+                         "B] tensor whose slice pos[:, k] is set k's "
+                         "positions")
     _build.require_cuda(planes, pos)
     if planes.dtype != torch.float32 or pos.dtype != torch.float32:
         raise TypeError("interp_multi: float32 planes and positions expected")

@@ -1,12 +1,16 @@
-"""The peaks and output map (kernel G, csrc/peaks.cu).
+"""The peaks and output map (kernel G, csrc/peaks.cu), with the mapped
+planner's position sets.
 
-`peaks_and_map` is the port of signalsmith_stretch_tpu/spectral.py:
-_peaks_and_map over rows: the runs of bins where the energy lies above its
-smoothed curve, each run's sums of b*energy[b] and energy[b] taken
+`peaks_positions` is the port of signalsmith_stretch_tpu/spectral.py:
+_peaks_and_map over rows, fused with the vote positions the planner
+subtracts from its input bins: the runs of bins where the energy lies above
+its smoothed curve, each run's sums of b*energy[b] and energy[b] taken
 bin-ascending (the reference's `+=` order), the peaks through the frequency
-map, and per bin the input bin and the gradient of the output map.  On a
-CPU tensor it runs the plain version (`spectral._peaks_and_map`); on a CUDA
-tensor it launches the kernel or raises.
+map, and per bin the input bin, the input bin less the block's time factor
+tf and less its long step's ltf (the three position sets of kernel A's one
+call), and the gradient of the output map.  On a CPU tensor it runs the
+plain version (`peaks_positions_plain`); on a CUDA tensor it launches the
+kernel or raises.
 """
 from __future__ import annotations
 
@@ -16,44 +20,98 @@ import torch
 from . import _build
 from .. import spectral
 
-launches = 0          # kernel launches of peaks_and_map
+launches = 0          # kernel launches of peaks_positions
+# the kernel's phases, as its timed entry splits them (csrc/peaks.cu STAMP)
+PHASES = ("wait", "flags", "runs", "prefix", "map")
 
 f32 = np.float32
 
 
-def peaks_and_map(energy: torch.Tensor, smoothed: torch.Tensor,
-                  controls: spectral.Controls,
-                  consts: spectral.SpectralConsts):
-    """Kernel wrapper (G): energy, smoothed [R, B] f32 -> (input_bin,
-    freq_grad) [R, B] f32, one launch."""
-    global launches
-    if energy.device.type == "cpu":
-        return spectral._peaks_and_map(energy, smoothed, controls, consts)
-    _build.require_cuda(energy, smoothed)
-    if energy.dtype != torch.float32 or smoothed.dtype != torch.float32:
-        raise TypeError("peaks_and_map: float32 tensors expected")
+def peaks_positions_plain(energy: torch.Tensor, smoothed: torch.Tensor,
+                          tf: torch.Tensor, ltf: torch.Tensor,
+                          controls: spectral.Controls,
+                          consts: spectral.SpectralConsts):
+    """Plain version of peaks_positions (same contract): the plain peaks
+    map and the two subtractions, each one float32 operation."""
+    input_bin, freq_grad = spectral._peaks_and_map(energy, smoothed, controls,
+                                                   consts)
+    clips = energy.shape[0] // tf.shape[0]
+    t1 = tf.repeat(clips)[:, None]          # rows are block-major per clip
+    t2 = ltf.repeat(clips)[:, None]
+    return torch.stack([input_bin, input_bin - t1, input_bin - t2], 1), \
+        freq_grad
+
+
+def _check(energy, smoothed, tf, ltf, consts):
+    _build.require_cuda(energy, smoothed, tf, ltf)
+    if any(t.dtype != torch.float32 for t in (energy, smoothed, tf, ltf)):
+        raise TypeError("peaks_positions: float32 tensors expected")
     if energy.dim() != 2 or smoothed.shape != energy.shape:
-        raise ValueError(f"peaks_and_map: energy and smoothed [R, B] expected, "
-                         f"got {tuple(energy.shape)} and "
+        raise ValueError(f"peaks_positions: energy and smoothed [R, B] "
+                         f"expected, got {tuple(energy.shape)} and "
                          f"{tuple(smoothed.shape)}")
+    if (tf.dim() != 1 or ltf.shape != tf.shape or tf.shape[0] == 0
+            or energy.shape[0] % tf.shape[0]):
+        raise ValueError(f"peaks_positions: tf and ltf [nB] with nB dividing "
+                         f"{energy.shape[0]} rows expected, got "
+                         f"{tuple(tf.shape)} and {tuple(ltf.shape)}")
     N = consts.fft_samples
     if N & (N - 1):
-        # the plain version on the card multiplies by 1/N where the kernel
-        # divides: the two agree only for a power of two
-        raise ValueError(f"peaks_and_map: FFT size {N} is not a power of two")
+        # the kernel and the plain version on the card multiply by 1/N,
+        # which equals the CPU's division only for a power of two
+        raise ValueError(f"peaks_positions: FFT size {N} is not a power of "
+                         f"two")
+    if 3 * energy.numel() >= 2 ** 31:
+        raise ValueError(f"peaks_positions: {tuple(energy.shape)} exceeds "
+                         f"32-bit indexing")
+
+
+def _launch(entry, energy, smoothed, tf, ltf, controls, consts, *extra):
     R, B = energy.shape
-    if energy.numel() >= 2 ** 31:
-        raise ValueError(f"peaks_and_map: {tuple(energy.shape)} exceeds 32-bit "
-                         f"indexing")
     limit = f32(controls.freq_tonality_limit)
     mult = f32(controls.freq_multiplier)
     above_off = f32(f32(mult - f32(1)) * limit)
-    input_bin = torch.empty_like(energy)
+    pos = torch.empty((R, 3, B), dtype=torch.float32, device=energy.device)
     freq_grad = torch.empty_like(energy)
-    rc = _build.entry("peaks")(
-        energy.data_ptr(), smoothed.data_ptr(), input_bin.data_ptr(),
-        freq_grad.data_ptr(), R, B, N, float(limit), float(mult),
-        float(above_off), torch.cuda.current_stream(energy.device).cuda_stream)
-    _build.check(rc, "sst_peaks_map")
+    rc = _build.entry(entry)(
+        energy.data_ptr(), smoothed.data_ptr(), tf.data_ptr(), ltf.data_ptr(),
+        pos.data_ptr(), freq_grad.data_ptr(), R, B, tf.shape[0],
+        consts.fft_samples, float(limit), float(mult), float(above_off),
+        *extra, torch.cuda.current_stream(energy.device).cuda_stream)
+    _build.check(rc, f"peaks kernel entry {entry!r}")
+    return pos, freq_grad
+
+
+def peaks_positions(energy: torch.Tensor, smoothed: torch.Tensor,
+                    tf: torch.Tensor, ltf: torch.Tensor,
+                    controls: spectral.Controls,
+                    consts: spectral.SpectralConsts):
+    """Kernel wrapper (G): energy, smoothed [R, B] f32 (rows block-major per
+    clip), tf and ltf [nB] f32 -> (pos [R, 3, B], freq_grad [R, B]) f32,
+    one launch.  pos[:, 0] is the input bin, pos[:, 1] and pos[:, 2] that
+    less tf and ltf of the row's block."""
+    global launches
+    if energy.device.type == "cpu":
+        return peaks_positions_plain(energy, smoothed, tf, ltf, controls,
+                                     consts)
+    _check(energy, smoothed, tf, ltf, consts)
+    out = _launch("peaks", energy, smoothed, tf, ltf, controls, consts)
     launches += 1
-    return input_bin, freq_grad
+    return out
+
+
+def phase_stamps(energy: torch.Tensor, smoothed: torch.Tensor,
+                 tf: torch.Tensor, ltf: torch.Tensor,
+                 controls: spectral.Controls,
+                 consts: spectral.SpectralConsts) -> torch.Tensor:
+    """The kernel's timed entry, which the main path never calls: the same
+    outputs, and per CTA the clock64() cycles of each of PHASES summed over
+    its rows, its start and end on the global timer (ns) and its SM, as
+    [CTAs, len(PHASES) + 3] int64 on the card.  Not counted in
+    `launches`."""
+    _check(energy, smoothed, tf, ltf, consts)
+    stamps = torch.zeros((energy.shape[0], len(PHASES) + 3),
+                         dtype=torch.int64, device=energy.device)
+    _launch("peaks_timed", energy, smoothed, tf, ltf, controls, consts,
+            stamps.data_ptr())
+    return stamps[stamps[:, len(PHASES) + 1] > 0]

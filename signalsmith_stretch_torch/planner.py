@@ -95,6 +95,14 @@ def _formant_targets(controls: spectral.Controls, compensation: bool, B: int,
                                         tb - floor_band, target < 0))
 
 
+@functools.lru_cache(maxsize=8)
+def _vote_shifts(tf_key: bytes, ltf_key: bytes, device: torch.device):
+    """The vote positions' per-block shifts tf and ltf ([nB] float32, given
+    as their bytes) on `device`, copied once per (plan, device)."""
+    return tuple(torch.as_tensor(np.frombuffer(k, np.float32).copy(),
+                                 device=device) for k in (tf_key, ltf_key))
+
+
 def _formant_ratio(metric: torch.Tensor, batch: int,
                    controls: spectral.Controls, flags: spectral.SpectralFlags,
                    consts: spectral.SpectralConsts, plain: bool, dbg):
@@ -223,13 +231,17 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
         iir = scan_ops.iir_chain_plain if plain else scan_ops.iir_chain
         sm, _ = iir(energy, torch.zeros(R, dtype=torch.float32, device=dev),
                     consts.slew, (True, False, True, False))
-        # the peaks and output map in one launch (kernel G)
-        peaks_map = (spectral._peaks_and_map if plain
-                     else peaks.peaks_and_map)
-        input_bin, freq_grad = peaks_map(energy, sm, controls, consts)
+        # the peaks and output map in one launch (kernel G), which also
+        # writes kernel A's three position sets: input_bin, input_bin - tf
+        # and input_bin - longv*tf of each row's block (:744-786)
+        peaks_map = (peaks.peaks_positions_plain if plain
+                     else peaks.peaks_positions)
+        tf_d, ltf_d = _vote_shifts(tf.astype(f32).tobytes(), ltf.tobytes(),
+                                   dev)
+        pos, freq_grad = peaks_map(energy, sm, tf_d, ltf_d, controls, consts)
         if debug:
-            dbg.update(energy=energy, smoothed=sm, input_bin=input_bin,
-                       freq_grad=freq_grad)
+            dbg.update(energy=energy, smoothed=sm, input_bin=pos[:, 0],
+                       freq_grad=freq_grad, pos=pos, shifts=(tf_d, ltf_d))
 
     if flags.process_formants:
         # ---- formants (:970-1036): every later read of in_energy (the
@@ -240,22 +252,21 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
 
     if flags.mapped:
         # ---- prediction lookups at the mapped positions (:697-719) --------
-        # one multi-set call (kernel A): the prelim lookups of input,
-        # prevInput and energy at input_bin, and the vote taps of the input
-        # at input_bin - tf and input_bin - longv*tf (:744-786)
+        # one multi-set call (kernel A) on G's position sets: the prelim
+        # lookups of input, prevInput and energy at input_bin, and the vote
+        # taps of the input at input_bin - tf and input_bin - longv*tf
         def rows(z):
             return z.reshape(R, B)
 
-        t1 = torch.as_tensor(tf, device=dev).repeat(batch)[:, None]
-        t2 = torch.as_tensor(ltf, device=dev).repeat(batch)[:, None]
         rows_list = ([rows(input_eff[:, :, c]) for c in range(ch)]
                      + [rows(prev_eff[:, :, c]) for c in range(ch)]
                      + [rows(in_energy[:, :, c]) for c in range(ch)])
-        specs = [(input_bin, 3 * ch), (input_bin - t1, ch),
-                 (input_bin - t2, ch)]
+        specs = [(pos[:, 0], 3 * ch), (pos[:, 1], ch), (pos[:, 2], ch)]
         planes, pos_sets, kinds = interp.pack(rows_list, specs)
-        run = interp.interp_multi_plain if plain else interp.interp_multi
-        results, _ = run(planes, pos_sets)
+        if plain:
+            results, _ = interp.interp_multi_plain(planes, pos_sets)
+        else:
+            results, _ = interp.interp_multi(planes, pos_sets, pos=pos)
         vals, sd, ld = [[v.reshape(batch, nB, B) for v in o]
                         for o in interp.unpack(results, specs, kinds)]
         pos_grad = torch.clamp(freq_grad.reshape(batch, nB, B), min=0)

@@ -276,14 +276,17 @@ def _mapped_model(dev, channels=2):
                                     "edge_rows_1000", "edge_rows_4096",
                                     "edge_rows_8192"])
 def test_peaks_kernel_matches_cpu(dev, source):
-    """G on the card against the plain peaks map on a CPU copy of its
-    inputs (each run summed bin-ascending, the reference's order and the
-    JAX package's on the CPU), bit for bit; the plain version on the card
-    against the same.  Inputs: a mapped render's energy and smoothed curve
-    (8 kHz stereo, +12 semitones), or the edge rows and random rows of
-    chip_smoke.peaks_edge_rows at B = 512, 1000, 4096 and 8192 (the 96 kHz
-    preset's bands, whose shared memory passes 48 KB)."""
-    from signalsmith_stretch_torch import engine, planner, spectral
+    """G on the card against its plain version on a CPU copy of its inputs
+    (each run summed bin-ascending, the reference's order and the JAX
+    package's on the CPU), bit for bit in all four planes (the position
+    sets input_bin, input_bin - tf and input_bin - ltf, and freq_grad); the
+    plain version on the card against the same.  Inputs: a mapped render's
+    energy, smoothed curve and time factors (8 kHz stereo, +12 semitones),
+    or the edge rows and random rows of chip_smoke.peaks_edge_rows at B =
+    512, 1000, 4096 and 8192 (the 96 kHz preset's bands, whose shared
+    memory passes 48 KB) with random time factors for two clips of 7
+    blocks."""
+    from signalsmith_stretch_torch import engine, planner
     from signalsmith_stretch_torch.ops import peaks
     model, rate, n = _mapped_model(dev)
     if source == "render":
@@ -298,16 +301,45 @@ def test_peaks_kernel_matches_cpu(dev, source):
                                        model.plan.consts, plain=True,
                                        debug=True)
         e, s = dbg["energy"], dbg["smoothed"]
+        tf, ltf = dbg["shifts"]
     else:
         e, s = (_t(a, dev) for a in chip_smoke.peaks_edge_rows(
             int(source.rsplit("_", 1)[1])))
-    args = (model.controls, model.plan.consts)
-    got = peaks.peaks_and_map(e, s, *args)
-    cpu = spectral._peaks_and_map(e.cpu(), s.cpu(), *args)
-    card = spectral._peaks_and_map(e, s, *args)
+        shifts = np.random.default_rng(3).uniform(0.5, 2.0, 7)
+        tf = _t(shifts.astype(np.float32), dev)
+        ltf = _t((np.float32(6) * shifts.astype(np.float32)), dev)
+    args = (e, s, tf, ltf, model.controls, model.plan.consts)
+    got = peaks.peaks_positions(*args)
+    cpu = peaks.peaks_positions_plain(*(a.cpu() for a in args[:4]),
+                                      *args[4:])
+    card = peaks.peaks_positions_plain(*args)
+    assert got[0].shape == (e.shape[0], 3, e.shape[1])
     for g, c, p in zip(got, cpu, card):
-        assert torch.equal(g.cpu(), c)
-        assert torch.equal(p.cpu(), c)
+        assert chip_smoke.same_bits(g.cpu(), c)
+        assert chip_smoke.same_bits(p.cpu(), c)
+
+
+def test_interp_stacked_positions_match_list(dev):
+    """interp_multi on a pre-stacked [rows, sets, B] position tensor (the
+    planner's call on G's output) gives the bits of the list form, lerp and
+    taps, and refuses a tensor whose slices are not the sets'."""
+    rng = np.random.default_rng(5)
+    rows, n, W0, B = 6, 5, 300, 256
+    planes = _t(rng.standard_normal((rows, n, W0)).astype(np.float32), dev)
+    base = np.cumsum(rng.uniform(0.2, 2.0, (rows, B)), 1).astype(np.float32)
+    pos = _t(np.stack([base - 20, base * 1.5 + 50, base - 3.25], 1), dev)
+    for taps in (False, True):
+        sets = [(pos[:, 0], 5, taps), (pos[:, 1], 2, taps),
+                (pos[:, 2], 3, taps)]
+        got, _ = interp.interp_multi(planes, sets, pos=pos)
+        ref, _ = interp.interp_multi(planes, sets)
+        for g, r in zip(got, ref):
+            for gg, rr in zip(g if taps else (g,), r if taps else (r,)):
+                assert chip_smoke.same_bits(gg, rr)
+    with pytest.raises(ValueError):
+        interp.interp_multi(planes, sets, pos=pos.clone())
+    with pytest.raises(ValueError):
+        interp.interp_multi(planes, sets[:2], pos=pos)
 
 
 def test_planner_launches(dev):

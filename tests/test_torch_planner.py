@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from signalsmith_stretch_torch import planner  # noqa: E402
+from signalsmith_stretch_torch.config import MAX_CLEAN_STRETCH  # noqa: E402
 from signalsmith_stretch_torch.models import StretchModel  # noqa: E402
 from signalsmith_stretch_tpu import engine as jengine  # noqa: E402
 from signalsmith_stretch_tpu import planner as jplanner  # noqa: E402
@@ -108,6 +109,26 @@ def test_mapped_intermediates_match_jax(stereo_signal, case):
         _close(got, np.asarray(jdbg[k]), k)
 
 
+@pytest.mark.parametrize("case", ["pitch+12_1.0", "pitch+12_1.25"])
+def test_fused_position_sets_match_jax(stereo_signal, case):
+    """Kernel G's plain version writes kernel A's three position sets: the
+    JAX planner's input_bin, input_bin - tf and input_bin - f32(longv)*tf
+    of each block (planner.py:598-601), bit for bit, with its gradient
+    beside them."""
+    sig, rate = stereo_signal
+    (_, dbg), (_, jdbg), model = _plan_both(sig, rate, case, debug=True)
+    tf = np.maximum(model.plan.arrays["time_factor"],
+                    np.float32(1.0 / MAX_CLEAN_STRETCH)).astype(np.float32)
+    ltf = (np.float32(model.plan.consts.long_vertical_step) * tf).astype(
+        np.float32)
+    base = np.asarray(jdbg["input_bin"])                     # [nB, B]
+    want = np.stack([base, base - tf[:, None], base - ltf[:, None]], 1)
+    got = dbg["pos"].numpy()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(dbg["input_bin"].numpy(), got[:, 0])
+
+
 def more_channels(sig, channels):
     """The stereo fixture with channels added: channel c >= 2 is channel
     c % 2 rolled by 37*c samples and scaled by 1 - 0.15*c."""
@@ -157,6 +178,28 @@ def test_planner_is_per_clip(stereo_signal):
                                             *args), 0)
         for k in one:
             np.testing.assert_array_equal(both[k][i], one[k], err_msg=k)
+
+
+def test_vote_shifts_built_once(stereo_signal):
+    """The mapped planner's per-block shifts tf and ltf = f32(longv) * tf
+    are built once per plan and device: a second plan of the same
+    schedule reads the same tensors, and they hold the schedule's float32
+    values."""
+    sig, rate = stereo_signal
+    model, _ = _models(sig, rate, "pitch+12_1.25")
+    from signalsmith_stretch_torch import engine
+    spectra, prev = engine.analyze_stage(torch.as_tensor(sig[None]),
+                                         model.plan)
+    args = (spectra, prev, model.plan.arrays, model.controls, model.flags,
+            model.plan.consts)
+    first = planner.plan_spectral(*args, debug=True)[1]["shifts"]
+    again = planner.plan_spectral(*args, debug=True)[1]["shifts"]
+    assert all(a is b for a, b in zip(first, again))
+    tf = np.maximum(model.plan.arrays["time_factor"],
+                    np.float32(1.0 / MAX_CLEAN_STRETCH)).astype(np.float32)
+    ltf = np.float32(model.plan.consts.long_vertical_step) * tf
+    np.testing.assert_array_equal(first[0].numpy(), tf)
+    np.testing.assert_array_equal(first[1].numpy(), ltf.astype(np.float32))
 
 
 def test_above_twice_stretch_is_not_ported(stereo_signal):

@@ -36,36 +36,16 @@ PORT_KERNELS = ("interp_multi_kernel", "stage_kernel", "sweep_kernel",
                 "peaks_map_kernel")
 
 
-def _events(prof, kind):
-    from torch.autograd import DeviceType
-    return [e for e in prof.events()
-            if e.device_type == getattr(DeviceType, kind)]
-
-
-def _profile(fn):
-    """Run fn() once under the profiler between two synchronises.
-    Returns (result, wall ms, profiler)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    return out, wall, prof
-
-
 def _summary(name, wall, prof, top=6):
-    dev = _events(prof, "CUDA")
+    dev = cs.profiler_events(prof, "CUDA")
     if not dev:
         raise SystemExit(f"{name}: the profiler recorded no device events")
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     by_name = collections.Counter()
     for e in dev:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
-    host = collections.Counter(e.name for e in _events(prof, "CPU"))
+    host = collections.Counter(
+        e.name for e in cs.profiler_events(prof, "CPU"))
     h2d = sum(1 for e in dev if "HtoD" in e.name)
     syncs = sum(n for k, n in host.items() if "Synchronize" in k)
     kernels = sum(1 for e in dev if "Memcpy" not in e.name
@@ -103,19 +83,19 @@ def profile_config(cfg, batch):
     lines = [f"{name}: batch {batch}, render {wall:.2f} ms (median of 3, "
              f"{[round(t, 2) for t in times]}), realtime factor "
              f"{audio_s / (wall / 1e3):.1f}x"]
-    _, w, prof = _profile(lambda: model.batched(audio))
+    _, w, prof = cs.profiled(lambda: model.batched(audio))
     lines += _summary("whole render", w, prof, top=10)
     plan = model.plan
-    (spectra, prev), w, prof = _profile(
+    (spectra, prev), w, prof = cs.profiled(
         lambda: engine.analyze_stage(audio, plan))
     lines += _summary("analysis", w, prof)
-    inputs, w, prof = _profile(lambda: planner.plan_spectral(
+    inputs, w, prof = cs.profiled(lambda: planner.plan_spectral(
         spectra, prev, plan.arrays, model.controls, model.flags, plan.consts))
     lines += _summary("plan", w, prof)
-    out_specs, w, prof = _profile(
+    out_specs, w, prof = cs.profiled(
         lambda: wavefront.sweep(inputs, plan.consts.long_vertical_step))
     lines += _summary("sweep", w, prof)
-    _, w, prof = _profile(
+    _, w, prof = cs.profiled(
         lambda: engine.synthesis_stage(out_specs, plan, audio=audio))
     lines += _summary("synthesis", w, prof)
     del spectra, prev, inputs, out_specs, audio
