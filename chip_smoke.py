@@ -26,16 +26,29 @@ Phases, in order; any failure exits non-zero before the last line:
      and E in their outputs and final values.  C, E and F are also timed on one
      row (`chain_ms`): for C and E one lane runs the whole chain, the
      card's own serial floor for that work; for F one warp;
+     Above 2x (the randomised regime): A on the 3x cell's four per-bin
+     vote sets and on the 2.5x pitch+2 cell's five sets, bit-equal and
+     timed, and the seeded draws (prng.uniform) timed beside the sweep;
   4. renders of stereo48k_default_1.25x, stereo48k_pitch+12_tonality8k,
-     formant_vocal_shift (base 220 Hz) and formant_vocal_shift_auto (base
-     estimated per block) at batch 8 x 10 s stereo 48 kHz through
-     StretchModel.batched, with each configuration's launch counts,
-     finiteness, shape, run-to-run bit identity, and a batch-1 clip through
-     the kernels against the same clip through the plain versions: the
-     spectral stage (A, B, C, E, F, G) on the spectra of one analysis
-     through D bit-equal, and the whole render bit-equal, else within the
-     chaos-relative gate (D rounds otherwise than cuFFT);
-  5. the kernel table as one JSON line, the nvidia-smi line, and the device
+     formant_vocal_shift (base 220 Hz), formant_vocal_shift_auto (base
+     estimated per block), stereo48k_3x_random (3x, no pitch map) and
+     stereo48k_2.5x_pitch+2_tonality8k at batch 8 x 10 s stereo 48 kHz
+     through StretchModel.batched, with each configuration's launch counts,
+     finiteness, shape, run-to-run bit identity, and a batch-1 clip (3 s
+     for the two randomised cells) through the kernels against the same
+     clip through the plain versions: the spectral stage (A, B, C, E, F, G)
+     on the spectra of one analysis through D bit-equal, and the whole
+     render bit-equal, else within the chaos-relative gate (D rounds
+     otherwise than cuFFT);
+  5. automation: SignalsmithStretch.exact on one 10 s clip with per-block
+     controls (a pitch ramp 0 to +7 semitones, 8 kHz limit, formant +3
+     semitones with compensation, base estimated): its launch counts, G
+     with per-block controls bit-equal to its plain version on a CPU copy
+     and on the card, and a 3 s clip's render gate as in phase 4;
+  6. the CLI (python3 -m signalsmith_stretch_torch.cli) in a subprocess on
+     a 10 s stereo 16-bit WAV at 1.25x and +3 semitones: its file equal to
+     exact()'s render of the same samples, quantised the same way;
+  7. the kernel table as one JSON line, the nvidia-smi line, and the device
      line {"ok": true, "device": {...}} last.  A kernel's `ms` is the median
      of 20 launches, each alone between CUDA events (5 for B); `ms_b2b` the
      mean of 20 issued back to back, which hides the host's launch time.
@@ -67,8 +80,15 @@ CONFIGS = (
                                                 tonality_hz=8000)),
     ("formant_vocal_shift", 1.0, dict(FORMANT, formant_base_hz=220)),
     ("formant_vocal_shift_auto", 1.0, dict(FORMANT, formant_base_hz=0)),
+    # above 2x: per-bin time factors drawn from each clip's seed
+    ("stereo48k_3x_random", 3.0, {}),
+    ("stereo48k_2.5x_pitch+2_tonality8k", 2.5, dict(semitones=2,
+                                                    tonality_hz=8000)),
 )
-STRETCH, MAPPED, _, FORMANT_AUTO = CONFIGS
+STRETCH, MAPPED, _, FORMANT_AUTO, RANDOM, RANDOM_MAPPED = CONFIGS
+# the batch-1 plain gate of these cells renders a shorter clip: the plain
+# sweep takes ~30 ms a block row, and a 10 s clip at 3x has ~1000 rows
+GATE_SECONDS = {RANDOM[0]: 3.0, RANDOM_MAPPED[0]: 3.0}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 flop/s
 # outside the tensor cores
@@ -314,10 +334,10 @@ def build_kernels():
         _build.entry(name)
 
 
-def _model(cfg, batch):
+def _model(cfg, batch, seconds=SECONDS):
     from signalsmith_stretch_torch.models import StretchModel
     name, time_factor, kw = cfg
-    in_len = int(RATE * SECONDS)
+    in_len = int(RATE * seconds)
     out_len = int(round(in_len * time_factor))
     model = StretchModel.build(channels=2, sample_rate=RATE,
                                in_samples=in_len, out_samples=out_len,
@@ -847,14 +867,22 @@ def reset_counters():
     peaks.launches = 0
 
 
-def expected_launches(flags):
-    """Kernel launches of one render: D and B always; A, the slew
-    smoothing's four passes in one launch of C and the peaks map (G) when
-    mapped; the envelope's eight decay passes in one launch of E for
-    formants; with the base estimated, the top-3 scan (F) and the two
-    freqEstimate chains over blocks, stacked in one launch of C."""
+def is_random(plan):
+    """Whether a plan stretches some block above 2x (randomised phases)."""
+    return bool((np.maximum(plan.arrays["time_factor"], np.float32(0.5))
+                 > np.float32(2)).any())
+
+
+def expected_launches(flags, random=False):
+    """Kernel launches of one render: D and B always; A when mapped (the
+    lookups and votes at G's positions) or above 2x (the votes at the
+    drawn positions); the slew smoothing's four passes in one launch of C
+    and the peaks map (G) when mapped; the envelope's eight decay passes in
+    one launch of E for formants; with the base estimated, the top-3 scan
+    (F) and the two freqEstimate chains over blocks, stacked in one launch
+    of C."""
     auto = flags.process_formants and flags.formant_auto
-    return {"interp_multi": int(flags.mapped), "sweep": 1,
+    return {"interp_multi": int(flags.mapped or random), "sweep": 1,
             "iir": int(flags.mapped) + int(auto), "dft": 1,
             "decay": int(flags.process_formants), "top3": int(auto),
             "peaks_map": int(flags.mapped)}
@@ -933,7 +961,7 @@ def render_config(cfg):
     torch.cuda.synchronize()
     counts = counters()
     peak = torch.cuda.max_memory_allocated()
-    want = expected_launches(model.flags)
+    want = expected_launches(model.flags, is_random(model.plan))
     if counts != want:
         raise SystemExit(f"{name}: kernel launches {counts}, expected {want}")
     shape = (BATCH, 2, model.out_samples)
@@ -953,7 +981,13 @@ def render_config(cfg):
     audio_s = BATCH * model.in_samples / RATE
     split = stage_split(model, audio)
 
-    ok, gate = render_vs_plain(model, audio[:1])
+    if name in GATE_SECONDS:
+        gate_model, gate_clip = _model(cfg, 1, GATE_SECONDS[name])
+        ok, gate = render_vs_plain(gate_model, torch.as_tensor(
+            gate_clip, device=DEVICE))
+        gate = f"({GATE_SECONDS[name]:g} s clip) {gate}"
+    else:
+        ok, gate = render_vs_plain(model, audio[:1])
     if not ok:
         raise SystemExit(f"{name}: {gate}")
     print(f"{name}: batch {BATCH} x {SECONDS:g} s stereo {RATE} Hz -> "
@@ -968,6 +1002,221 @@ def render_config(cfg):
     return counts
 
 
+def check_random_interp():
+    """A on the randomised cells' position sets at their main-path shapes:
+    four per-bin vote sets over the input's planes (3x, unmapped) and G's
+    input bin with four vote sets (2.5x at +2 semitones), bit-equal to the
+    plain version and timed.  Also times the draws (the per-bin factors of
+    the batch, each clip's prng.uniform of (2, nB, B)) and, at 3x, the
+    sweep they feed.  Returns the numbers by cell."""
+    import torch
+    from signalsmith_stretch_torch import engine, planner, prng, wavefront
+    from signalsmith_stretch_torch.config import MAX_CLEAN_STRETCH
+    from signalsmith_stretch_torch.ops import interp
+    out = {}
+    for cfg in (RANDOM, RANDOM_MAPPED):
+        name = cfg[0]
+        model, clips = _model(cfg, BATCH)
+        plan = model.plan
+        audio = torch.as_tensor(clips, device=DEVICE)
+        spectra, prev = engine.analyze_stage(audio, plan)
+        inputs, dbg = planner.plan_spectral(spectra, prev, plan.arrays,
+                                            model.controls, model.flags,
+                                            plan.consts, debug=True)
+        planes, pos_sets = dbg["interp"]
+        pos = dbg["pos"]
+        got, _ = interp.interp_multi(planes, pos_sets, pos=pos)
+        ref, _ = interp.interp_multi_plain(planes, pos_sets)
+        err = max(max_abs(g, r) for g, r in zip(got, ref))
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise SystemExit(f"interp_multi ({name}): kernel differs from "
+                             f"the plain version, max abs {err}")
+        rows, n, W0 = planes.shape
+        B = pos.shape[-1]
+        nout = sum(ns for _, ns, _ in pos_sets)
+        ms = cuda_ms(lambda: interp.interp_multi(planes, pos_sets, pos=pos),
+                     KERNEL_REPS)
+        b2b = cuda_ms_b2b(lambda: interp.interp_multi(planes, pos_sets,
+                                                      pos=pos), KERNEL_REPS)
+        plain = cuda_ms(lambda: interp.interp_multi_plain(planes, pos_sets),
+                        3)
+        bound = bound_ms(4 * (rows * n * W0 + rows * len(pos_sets) * B
+                              + rows * nout * B),
+                         3 * rows * nout * B + 2 * rows * len(pos_sets) * B)
+        print(f"A interp_multi {name}: planes {tuple(planes.shape)}, sets "
+              f"{[ns for _, ns, _ in pos_sets]} on [{rows}, {len(pos_sets)}, "
+              f"{B}] positions: bit-equal to the plain version; {ms:.4f} ms "
+              f"a launch alone, {b2b:.4f} ms back to back, plain {plain:.1f} "
+              f"ms, bound {bound[0]:.4f} ms ({bound[1]})")
+        out[name] = dict(ms=ms, ms_b2b=b2b, plain_ms=plain, bound=bound,
+                         planes=tuple(planes.shape), sets=len(pos_sets))
+        nB = spectra.shape[1]
+        tf = np.maximum(plan.arrays["time_factor"],
+                        np.float32(1 / MAX_CLEAN_STRETCH)).astype(np.float32)
+        lo = torch.as_tensor((np.float32(4) * (tf > 2).astype(np.float32)
+                              - tf)[None, :, None], device=DEVICE)
+        hi = torch.as_tensor(tf[None, :, None].copy(), device=DEVICE)
+        draws = cuda_ms(lambda: [prng.uniform(prng.key(i), (2, nB, B), lo, hi,
+                                              DEVICE) for i in range(BATCH)],
+                        5)
+        factors = cuda_ms(lambda: planner._random_time_factors(
+            tf, range(BATCH), B, model.flags, DEVICE), 5)
+        out[name].update(draws_ms=draws, factors_ms=factors, nB=nB)
+        line = (f"draws {name}: prng.uniform of [{BATCH}, 2, {nB}, {B}] "
+                f"({BATCH} clips of (2, {nB}, {B})) {draws:.3f} ms, the "
+                f"planner's per-bin factors with their selects {factors:.3f} "
+                f"ms")
+        if cfg is RANDOM:
+            sweep = cuda_ms(lambda: wavefront.sweep(
+                inputs, plan.consts.long_vertical_step), 3)
+            out[name]["sweep_ms"] = sweep
+            line += f"; the sweep of the same batch {sweep:.3f} ms"
+        print(line)
+        del spectra, prev, inputs, dbg, planes, pos, got, ref, audio
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_automation():
+    """SignalsmithStretch.exact with per-block controls on one 10 s stereo
+    clip: a pitch ramp from 0 to +7 semitones (a callable of output time),
+    the 8 kHz tonality limit, formant +3 semitones with compensation, base
+    estimated.  Its launch counts, finiteness, shape and run-to-run
+    identity; G with the per-block controls on the render's rows bit-equal
+    to its plain version on a CPU copy and on the card; a 3 s clip's
+    render through the kernels against the plain versions
+    (render_vs_plain).  Returns the launch counts of the counted call."""
+    import torch
+    from signalsmith_stretch_torch import SignalsmithStretch, engine, planner
+    from signalsmith_stretch_torch.models import StretchModel
+    from signalsmith_stretch_torch.ops import peaks
+    s = SignalsmithStretch(device=DEVICE)
+    s.preset_default(2, RATE)
+    s.set_formant_factor(1.0, True)        # pitch compensation
+    auto = dict(semitones=lambda t: 7.0 * t / SECONDS,
+                tonality_limit=8000 / RATE,
+                formant_semitones=3, formant_base=0,
+                sample_rate=RATE)
+    in_len = int(RATE * SECONDS)
+    clip = make_corpus(1, 2, in_len, RATE, seed=2)[0]
+    s.exact(clip, in_len, automation=auto)              # set-up
+    torch.cuda.synchronize()
+    reset_counters()
+    out, ok = s.exact(clip, in_len, automation=auto)    # the counted run
+    torch.cuda.synchronize()
+    counts = counters()
+    plan = s.plan(in_len, in_len)
+    controls, flags = s._automated(plan, auto)
+    want = expected_launches(flags)
+    name = "automation"
+    if counts != want or not flags.mapped or not controls.automated:
+        raise SystemExit(f"{name}: kernel launches {counts}, expected {want}")
+    if not ok or out.shape != (2, in_len) or not np.isfinite(out).all():
+        raise SystemExit(f"{name}: output {out.shape} not finite or refused")
+    times = []
+    for _ in range(RENDER_REPS):
+        t0 = time.perf_counter()
+        again, _ = s.exact(clip, in_len, automation=auto)
+        times.append(time.perf_counter() - t0)
+        if again.tobytes() != out.tobytes():
+            raise SystemExit(f"{name}: two renders of the same clip differ")
+    secs = statistics.median(times)
+
+    # G with per-block controls on the render's rows
+    x = torch.as_tensor(clip, device=DEVICE)[None]
+    spectra, prev = engine.analyze_stage(x, plan)
+    _, dbg = planner.plan_spectral(spectra, prev, plan.arrays, controls,
+                                   flags, plan.consts, debug=True)
+    args = (dbg["energy"], dbg["smoothed"], *dbg["shifts"])
+    got = peaks.peaks_positions(*args, controls, plan.consts)
+    cpu = peaks.peaks_positions_plain(*(a.cpu() for a in args), controls,
+                                      plan.consts)
+    card = peaks.peaks_positions_plain(*args, controls, plan.consts)
+    for g, c, p in zip(got, cpu, card):
+        if not (same_bits(g.cpu(), c) and same_bits(g, p)):
+            raise SystemExit(f"{name}: G with per-block controls differs "
+                             f"from its plain version, max abs "
+                             f"{max_abs(g.cpu(), c)}")
+    g_ms = cuda_ms(lambda: peaks.peaks_positions(*args, controls,
+                                                 plan.consts), KERNEL_REPS)
+    g_scalar = cuda_ms(lambda: peaks.peaks_positions(
+        *args, controls._replace(**{k: np.float32(getattr(controls, k)[0])
+                                    for k in controls._fields}),
+        plan.consts), KERNEL_REPS)
+    mults = controls.freq_multiplier
+    print(f"G peaks_map {name}: {tuple(args[0].shape)} rows, per-block "
+          f"controls (mult {mults.min():.4f} to {mults.max():.4f}): the four "
+          f"planes bit-equal to the plain version on the CPU and on the "
+          f"card; {g_ms:.4f} ms a launch alone (scalar controls on the same "
+          f"rows {g_scalar:.4f} ms)")
+    del spectra, prev, dbg, args, got, cpu, card
+
+    # a 3 s clip through the kernels against the plain versions
+    n3 = min(int(RATE * 3.0), in_len)
+    plan3 = s.plan(n3, n3)
+    c3, f3 = s._automated(plan3, auto)
+    gate_model = StretchModel(s.config, c3, f3, n3, n3, plan=plan3,
+                              device=DEVICE)
+    ok, gate = render_vs_plain(gate_model, x[:, :, :n3].contiguous())
+    if not ok:
+        raise SystemExit(f"{name}: {gate}")
+    print(f"{name}: SignalsmithStretch.exact, 1 x {SECONDS:g} s stereo "
+          f"{RATE} Hz, {len(mults)} blocks of per-block controls -> "
+          f"{out.shape}; render {secs * 1e3:.1f} ms (median of "
+          f"{RENDER_REPS}, {[round(t * 1e3, 1) for t in times]}, numpy in "
+          f"and out), realtime factor {SECONDS / secs:.1f}x; launches "
+          f"{counts}; two renders bit-identical; 3 s clip, kernels vs plain: "
+          f"{gate}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_cli():
+    """The CLI in a subprocess on the card: a 10 s stereo 16-bit WAV at
+    1.25x and +3 semitones.  Its exit code, round(n * 1.25) samples, and
+    the file equal, byte for byte, to the `exact` render of the WAV's
+    samples written the same way."""
+    import tempfile
+    from signalsmith_stretch_torch import SignalsmithStretch
+    from signalsmith_stretch_torch.io import read_wav, write_wav
+    in_len = int(RATE * SECONDS)
+    out_len = int(round(in_len * 1.25))
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        inp, outp, ref = (os.path.join(d, f) for f in
+                          ("in.wav", "out.wav", "ref.wav"))
+        write_wav(inp, 0.8 * make_corpus(1, 2, in_len, RATE, seed=3)[0], RATE)
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "signalsmith_stretch_torch.cli", inp, outp,
+             "--time=1.25", "--semitones=3"], cwd=ROOT, capture_output=True,
+            text=True, timeout=600, env=dict(os.environ, PYTHONPATH=ROOT))
+        wall = time.perf_counter() - t0
+        if r.returncode:
+            raise SystemExit(f"cli: exit {r.returncode}: {r.stderr[-2000:]}")
+        out, rate = read_wav(outp)
+        if rate != RATE or out.shape != (2, out_len):
+            raise SystemExit(f"cli: {out.shape} at {rate} Hz, want "
+                             f"{(2, out_len)} at {RATE}")
+        pcm, _ = read_wav(inp)
+        s = SignalsmithStretch(device=DEVICE)
+        s.preset_default(2, RATE)
+        s.set_transpose_semitones(3, 8000 / RATE)
+        want, ok = s.exact(pcm, out_len)
+        write_wav(ref, want, RATE)
+        with open(outp, "rb") as a, open(ref, "rb") as b:
+            if not ok or a.read() != b.read():
+                raise SystemExit("cli: the output file differs from the exact "
+                                 "render of its input")
+    said = [ln for ln in r.stdout.splitlines() if "realtime" in ln]
+    print(f"cli: python3 -m signalsmith_stretch_torch.cli in.wav out.wav "
+          f"--time=1.25 --semitones=3 on {SECONDS:g} s stereo: exit 0, "
+          f"{out.shape[1]} samples, the file equals exact()'s render written "
+          f"the same way; {wall:.1f} s in all with the process start; it "
+          f"said: {said[0] if said else r.stdout.strip()}")
+
+
 def main():
     import torch
     import signalsmith_stretch_torch  # noqa: F401  (fails outside a checkout)
@@ -975,10 +1224,13 @@ def main():
     header()
     build_kernels()
     entries = check_kernels()
+    random_interp = check_random_interp()
     launches = {name: 0 for name, _, _ in KERNELS}
-    for cfg in CONFIGS:
-        for k, v in render_config(cfg).items():
+    for counted in [render_config(cfg) for cfg in CONFIGS] + [
+            check_automation()]:
+        for k, v in counted.items():
             launches[k] += v
+    check_cli()
     table = []
     for name, source, replaces in KERNELS:
         e = entries[name]
@@ -989,6 +1241,9 @@ def main():
                           bound_ms=e["bound"][0], bound_by=e["bound"][1],
                           library_ms=e.get("library_ms"),
                           chain_ms=e.get("chain_ms")))
+    table[0]["random_sets"] = {
+        name: {k: v for k, v in e.items() if k != "bound"}
+        | {"bound_ms": e["bound"][0]} for name, e in random_interp.items()}
     missing = [t["name"] for t in table if t["launches"] < 1]
     if missing:
         raise SystemExit(f"kernels never launched on the main path: {missing}")

@@ -65,6 +65,17 @@ class StretchConfig:
                 + (self.interval_samples if self.split_computation else 0))
 
     @property
+    def seek_length(self) -> int:
+        # signalsmith-stretch.h:166-168
+        return self.block_samples + self.interval_samples
+
+    def output_seek_length(self, playback_rate: float) -> int:
+        # signalsmith-stretch.h:205-207: double arithmetic truncated to int,
+        # as the C++ int cast
+        return int(self.input_latency
+                   + float(playback_rate) * self.output_latency)
+
+    @property
     def smoothing_bins(self) -> float:
         # float32 `Sample(stft.fftSamples())/stft.defaultInterval()` (:636)
         return float(np.float32(self.fft_samples)

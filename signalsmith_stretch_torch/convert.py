@@ -2,7 +2,8 @@
 
 The system has no learned weights: its state is the static plan (schedule,
 frame indices, WOLA weight, silence plan, STFT basis, spectral constants)
-plus the controls and flags.  `plan_to_arrays` flattens it into a dict of
+plus the controls (scalars, or per-block arrays under automation) and
+flags.  `plan_to_arrays` flattens it into a dict of
 numpy arrays and scalars, reading attributes only, so it accepts the plan of
 either package; `plan_from_arrays` and `controls_from_arrays` rebuild the
 port's objects from such a dict.
@@ -69,8 +70,9 @@ def plan_to_arrays(plan, controls=None, flags=None) -> dict:
         d["silence.pre_spans"] = _spans(sil.pre_spans)
         d["silence.pm_spans"] = _spans(sil.pm_spans)
     if controls is not None:
+        # scalars, or [nB] arrays of per-block values (automation)
         for k in _CONTROLS:
-            d["controls." + k] = np.float32(getattr(controls, k))
+            d["controls." + k] = np.asarray(getattr(controls, k), np.float32)
     if flags is not None:
         for k in _FLAGS:
             d["flags." + k] = np.asarray(bool(getattr(flags, k)))
@@ -111,7 +113,14 @@ def plan_from_arrays(d: dict) -> ExactPlan:
                      *[d[k] for k in _PLAN], arrays, silence=silence)
 
 
+def _control(v):
+    v = np.asarray(v, np.float32)
+    return np.float32(v) if v.ndim == 0 else v.copy()
+
+
 def controls_from_arrays(d: dict):
-    """(Controls, SpectralFlags) from a plan_to_arrays dict."""
-    return (Controls(*[np.float32(d["controls." + k]) for k in _CONTROLS]),
+    """(Controls, SpectralFlags) from a plan_to_arrays dict: scalar or
+    per-block controls; the flags without a random engine (a callable is
+    not state: the port draws with its own prng unless one is given)."""
+    return (Controls(*[_control(d["controls." + k]) for k in _CONTROLS]),
             SpectralFlags(*[bool(d["flags." + k]) for k in _FLAGS]))

@@ -9,7 +9,9 @@
 // ops/peaks.peaks_positions_plain over spectral._peaks_and_map).  Outputs:
 // pos [R, 3, B], the sets input_bin, input_bin - tf[blk] and
 // input_bin - ltf[blk] (blk = row % nB: rows are block-major per clip),
-// and freq_grad [R, B].
+// and freq_grad [R, B].  The frequency map's constants (limit, mult,
+// above_off) are ctl[row % nC]: one set (nC = 1) or one per block (nC = nB,
+// automation).
 //
 // Replaces signalsmith_stretch_tpu/spectral.py:260-319, _peaks_and_map (not
 // a Pallas kernel: two jax.ops.segment_sum calls, a scatter histogram and
@@ -205,8 +207,8 @@ peaks_map_kernel(const float* __restrict__ energy,
                  const float* __restrict__ smoothed,
                  const float* __restrict__ tf, const float* __restrict__ ltf,
                  float* __restrict__ pos, float* __restrict__ freq_grad,
-                 int R, int B, int nB, float N, float inv_N, float limit,
-                 float mult, float above_off, long long* stamps) {
+                 int R, int B, int nB, float N, float inv_N,
+                 const float* __restrict__ ctl, int nC, long long* stamps) {
   extern __shared__ __align__(16) float smem[];
   const Layout L(B);
   const int NS = L.NS, W = L.W;
@@ -243,6 +245,8 @@ peaks_map_kernel(const float* __restrict__ energy,
     float* pair_out_scale = E + 3 * M;
     const int blk = row % nB;
     const float tf_r = tf[blk], ltf_r = ltf[blk];
+    const float* ctl_r = ctl + 3 * (row % nC);
+    const float limit = ctl_r[0], mult = ctl_r[1], above_off = ctl_r[2];
     cp_async_wait_all();
     __syncthreads();
     STAMP(1)
@@ -433,8 +437,8 @@ peaks_map_kernel(const float* __restrict__ energy,
 template <int VEC, bool TIMED>
 static int launch(const float* energy, const float* smoothed, const float* tf,
                   const float* ltf, float* pos, float* freq_grad, int R, int B,
-                  int nB, int N, float limit, float mult, float above_off,
-                  long long* stamps, void* stream) {
+                  int nB, int N, const float* ctl, int nC, long long* stamps,
+                  void* stream) {
   // the grid: as many CTAs as are resident at once, found once per size
   // and card
   static int grid_bytes = -1, grid_dev = -1, per_sm = 0, sms = 0;
@@ -460,17 +464,19 @@ static int launch(const float* energy, const float* smoothed, const float* tf,
   peaks_map_kernel<VEC, TIMED>
       <<<grid, PEAKS_THREADS, bytes, (cudaStream_t)stream>>>(
       energy, smoothed, tf, ltf, pos, freq_grad, R, B, nB, (float)N,
-      1.f / (float)N, limit, mult, above_off, stamps);
+      1.f / (float)N, ctl, nC, stamps);
   return (int)cudaGetLastError();
 }
 
 template <bool TIMED>
 static int dispatch(const float* energy, const float* smoothed,
                     const float* tf, const float* ltf, float* pos,
-                    float* freq_grad, int R, int B, int nB, int N, float limit,
-                    float mult, float above_off, long long* stamps,
+                    float* freq_grad, int R, int B, int nB, int N,
+                    const float* ctl, int nC, long long* stamps,
                     void* stream) {
   if (R <= 0 || B <= 0) return 0;
+  if (nC < 1 || nB < 1 || R % nB || (nC != 1 && nC != nB))
+    return (int)cudaErrorInvalidValue;
   // 16-byte rows: B a multiple of four and every plane aligned
   const bool vec = B % 4 == 0 &&
                    ((reinterpret_cast<size_t>(energy) |
@@ -478,22 +484,21 @@ static int dispatch(const float* energy, const float* smoothed,
                      reinterpret_cast<size_t>(pos) |
                      reinterpret_cast<size_t>(freq_grad)) & 15) == 0;
   return (vec ? launch<4, TIMED> : launch<1, TIMED>)(
-      energy, smoothed, tf, ltf, pos, freq_grad, R, B, nB, N, limit, mult,
-      above_off, stamps, stream);
+      energy, smoothed, tf, ltf, pos, freq_grad, R, B, nB, N, ctl, nC, stamps,
+      stream);
 }
 
 // energy, smoothed [R, B] f32; tf, ltf [nB] f32 (rows block-major per
 // clip, R a multiple of nB); pos [R, 3, B] and freq_grad [R, B] f32 out; N
-// the FFT size; limit, mult and above_off = f32(f32(mult - 1) * limit) the
-// frequency map's float32 constants.  Returns the cudaError_t of the
-// launch.
+// the FFT size; ctl [nC, 3] f32 (nC 1 or nB) the frequency map's float32
+// constants limit, mult and above_off = f32(f32(mult - 1) * limit), of the
+// render or of each block.  Returns the cudaError_t of the launch.
 extern "C" int sst_peaks_map(const float* energy, const float* smoothed,
                              const float* tf, const float* ltf, float* pos,
                              float* freq_grad, int R, int B, int nB, int N,
-                             float limit, float mult, float above_off,
-                             void* stream) {
+                             const float* ctl, int nC, void* stream) {
   return dispatch<false>(energy, smoothed, tf, ltf, pos, freq_grad, R, B, nB,
-                         N, limit, mult, above_off, nullptr, stream);
+                         N, ctl, nC, nullptr, stream);
 }
 
 // the same, and per CTA the phase stamps (see STAMP) into stamps, at least
@@ -501,9 +506,8 @@ extern "C" int sst_peaks_map(const float* energy, const float* smoothed,
 extern "C" int sst_peaks_map_timed(const float* energy, const float* smoothed,
                                    const float* tf, const float* ltf,
                                    float* pos, float* freq_grad, int R, int B,
-                                   int nB, int N, float limit, float mult,
-                                   float above_off, long long* stamps,
-                                   void* stream) {
+                                   int nB, int N, const float* ctl, int nC,
+                                   long long* stamps, void* stream) {
   return dispatch<true>(energy, smoothed, tf, ltf, pos, freq_grad, R, B, nB,
-                        N, limit, mult, above_off, stamps, stream);
+                        N, ctl, nC, stamps, stream);
 }

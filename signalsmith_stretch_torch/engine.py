@@ -185,10 +185,12 @@ def analyze_stage(audio: torch.Tensor, plan: ExactPlan, plain: bool = False):
 
 def spectral_stage(spectra, prev_spectra, plan: ExactPlan,
                    controls: spectral.Controls, flags: spectral.SpectralFlags,
-                   plain: bool = False):
-    """The spectral processor over all blocks: [batch, ch, nB, B] complex64."""
+                   plain: bool = False, seeds=None):
+    """The spectral processor over all blocks: [batch, ch, nB, B] complex64.
+    seeds: one integer a clip for the randomised regime above 2x."""
     return wavefront.spectral_all_blocks(spectra, prev_spectra, plan.arrays,
-                                         controls, flags, plan.consts, plain)
+                                         controls, flags, plan.consts, plain,
+                                         seeds)
 
 
 def _overlap_add(blocks_t: torch.Tensor, out_pos: np.ndarray,
@@ -237,7 +239,8 @@ def synthesis_stage(out_specs: torch.Tensor, plan: ExactPlan,
     """Inverse FFT + overlap-add + WOLA-normalised assembly: out_specs
     [batch, ch, nB, B] complex64 -> [batch, ch, out_samples].  With `audio`
     given, the silence bypass (:240-278) selects, per clip, between the
-    normal assembly and passthrough/zeros with restricted-ring tails."""
+    normal assembly and passthrough/zeros with restricted-ring tails;
+    without it the bypass is off."""
     cfg, sch = plan.cfg, plan.sched
     blocks_t = stft.synthesize(out_specs, plan.basis)   # [batch, ch, nB, block]
     ring = _overlap_add(blocks_t, plan.arrays["out_pos"], sch.ring_len,
@@ -295,12 +298,17 @@ def synthesis_stage(out_specs: torch.Tensor, plan: ExactPlan,
 
 def render_exact(audio: torch.Tensor, plan: ExactPlan,
                  controls: spectral.Controls, flags: spectral.SpectralFlags,
-                 plain: bool = False) -> torch.Tensor:
+                 plain: bool = False, seeds=None,
+                 silence: bool = True) -> torch.Tensor:
     """audio [batch, ch, in_samples] float32 -> [batch, ch, out_samples].
-    plain=True runs the plain PyTorch versions of the kernels."""
+    plain=True runs the plain PyTorch versions of the kernels.  seeds: one
+    integer a clip for the randomised regime above 2x (default 0, 1, ...,
+    as the JAX package's batched render).  silence=False turns the silence
+    bypass off (the JAX package's SST_SILENCE=0): every clip takes the
+    normal path, which leaves a loud clip's render as it was."""
     if not plan.sched.valid:
         return audio.new_zeros(audio.shape[:2] + (plan.sched.out_samples,))
     spectra, prev_spectra = analyze_stage(audio, plan, plain)
     out_specs = spectral_stage(spectra, prev_spectra, plan, controls, flags,
-                               plain)
-    return synthesis_stage(out_specs, plan, audio=audio)
+                               plain, seeds)
+    return synthesis_stage(out_specs, plan, audio=audio if silence else None)

@@ -61,17 +61,23 @@ class StretchModel(nn.Module):
         return cls(cfg, controls, flags, in_samples, out_samples,
                    device=device)
 
-    def forward(self, audio, plain: bool = False) -> torch.Tensor:
-        """One clip [ch, in] -> [ch, out]."""
-        return self.batched(torch.as_tensor(audio)[None], plain)[0]
+    def forward(self, audio, seed: int = 0,
+                plain: bool = False) -> torch.Tensor:
+        """One clip [ch, in] -> [ch, out]; seed seeds the randomised regime
+        above 2x."""
+        return self.batched(torch.as_tensor(audio)[None], [seed], plain)[0]
 
-    def batched(self, audio, plain: bool = False) -> torch.Tensor:
-        """[batch, ch, in] -> [batch, ch, out].  plain=True runs the plain
-        PyTorch versions of the kernels (for comparisons on the card)."""
+    def batched(self, audio, seeds=None, plain: bool = False) -> torch.Tensor:
+        """[batch, ch, in] -> [batch, ch, out].  seeds: one integer a clip
+        for the randomised regime above 2x, by default 0, 1, ..., batch - 1
+        (the JAX package's `batched`).  plain=True runs the plain PyTorch
+        versions of the kernels (for comparisons on the card)."""
         audio = torch.as_tensor(audio, dtype=torch.float32, device=self.device)
         if audio.shape[1:] != (self.cfg.channels, self.in_samples):
             raise ValueError(f"expected [batch, {self.cfg.channels}, "
                              f"{self.in_samples}] audio, got "
                              f"{tuple(audio.shape)}")
+        if seeds is not None:
+            seeds = [int(s) for s in np.asarray(seeds).reshape(-1)]
         return engine.render_exact(audio, self.plan, self.controls,
-                                   self.flags, plain)
+                                   self.flags, plain, seeds)

@@ -36,10 +36,9 @@ ENTRY = {
     "decay": ("decay", "sst_decay_chain",
               [_P] * 6 + [_I, _I, _P] + [_I] * 4 + [_P]),
     "top3": ("top3", "sst_top3", [_P] * 3 + [_I] * 2 + [_P]),
-    "peaks": ("peaks", "sst_peaks_map",
-              [_P] * 6 + [_I] * 4 + [ctypes.c_float] * 3 + [_P]),
+    "peaks": ("peaks", "sst_peaks_map", [_P] * 6 + [_I] * 4 + [_P, _I, _P]),
     "peaks_timed": ("peaks", "sst_peaks_map_timed",
-                    [_P] * 6 + [_I] * 4 + [ctypes.c_float] * 3 + [_P] * 2),
+                    [_P] * 6 + [_I] * 4 + [_P, _I, _P, _P]),
 }
 SOURCES = tuple(dict.fromkeys(source for source, _, _ in ENTRY.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

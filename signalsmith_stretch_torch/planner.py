@@ -17,9 +17,13 @@ a batch at once, in complex64:
     (kernel E, one launch), and the envelope ratio that rescales the input
     energies;
   - the prediction energies, the c1 chain coefficient and the four vote
-    coefficients a1, a2, d1, d2 of the main prediction (:722-803).
+    coefficients a1, a2, d1, d2 of the main prediction (:722-803); above
+    2x (randomised phases, :747-757) the votes read per-bin positions
+    drawn from each clip's seed (prng.py), in one launch of kernel A.
 
-The randomised >2x stretch regime is not ported yet.
+Controls may be scalars or per-block [nB] arrays (automation); the peaks
+map (G), the formant targets and the given formant base then take each
+block's values.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import spectral
+from . import prng, spectral
 from .config import MAX_CLEAN_STRETCH, NOISE_FLOOR
 from .ops import interp, peaks, scan_ops
 
@@ -75,14 +79,22 @@ def _where0(cond, x):
     return torch.where(cond, x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-@functools.lru_cache(maxsize=8)
 def _formant_targets(controls: spectral.Controls, compensation: bool, B: int,
                      N: int, device: torch.device):
     """The envelope lookup's static positions (:1011-1036): the target band
     of each bin (inverse formant map, after the pitch map when compensating)
     as JAX's clipped take reads it: low and high indices into the envelope
-    padded with two zeros, the fraction, and the target_band < 0 mask.
-    Float32 on the CPU, computed once per (controls, shape, device)."""
+    padded with two zeros, the fraction, and the target_band < 0 mask, each
+    [B], or [nB, B] for per-block controls.  Float32 on the CPU, computed
+    once per (controls, shape, device)."""
+    return _formant_targets_cached(controls.key(), compensation, B, N,
+                                   device)
+
+
+@functools.lru_cache(maxsize=8)
+def _formant_targets_cached(key: tuple, compensation: bool, B: int, N: int,
+                            device: torch.device):
+    controls = spectral.Controls.from_key(key)
     band_freq = (torch.arange(B, dtype=torch.float32) + 0.5) / N
     out_f = (spectral.map_freq(band_freq, controls) if compensation
              else band_freq)
@@ -103,6 +115,36 @@ def _vote_shifts(tf_key: bytes, ltf_key: bytes, device: torch.device):
                                  device=device) for k in (tf_key, ltf_key))
 
 
+@functools.lru_cache(maxsize=8)
+def _random_bounds(tf_key: bytes, device: torch.device):
+    """Above 2x (:747-757): the blocks whose binTimeFactor is drawn
+    (random_tf = tf > 2, [nB, 1] bool), and the draws' bounds lo_d = 4 *
+    random_tf - tf and tf as [1, nB, 1] float32, JAX's expressions
+    (planner.py:483-488), on `device` once per (plan, device)."""
+    tf = np.frombuffer(tf_key, np.float32)
+    random_tf = tf > f32(MAX_CLEAN_STRETCH)
+    lo_d = (f32(MAX_CLEAN_STRETCH) * 2 * random_tf.astype(f32) - tf).astype(
+        f32)
+    return (torch.as_tensor(random_tf[:, None], device=device),
+            torch.as_tensor(lo_d[None, :, None], device=device),
+            torch.as_tensor(tf[None, :, None].copy(), device=device))
+
+
+def _random_time_factors(tf: np.ndarray, seeds, B: int,
+                         flags: spectral.SpectralFlags, device):
+    """The per-bin time factors of the randomised regime, btf1 and btf2
+    [batch, nB, B] float32: for each clip, draws (2, nB, B) uniform in
+    [lo_d, tf) from prng.key(seed) (through flags.random_engine, if set) in
+    the blocks above 2x, tf elsewhere."""
+    random_tf, lo_d, tf_t = _random_bounds(tf.astype(f32).tobytes(), device)
+    draws = torch.stack([
+        spectral.draw_uniform(flags, prng.key(seed), (2, len(tf), B), lo_d,
+                              tf_t) for seed in seeds])
+    tf_b = tf_t[0]                                           # [nB, 1]
+    return (torch.where(random_tf, draws[:, 0], tf_b),
+            torch.where(random_tf, draws[:, 1], tf_b))
+
+
 def _formant_ratio(metric: torch.Tensor, batch: int,
                    controls: spectral.Controls, flags: spectral.SpectralFlags,
                    consts: spectral.SpectralConsts, plain: bool, dbg):
@@ -115,9 +157,10 @@ def _formant_ratio(metric: torch.Tensor, batch: int,
     def zeros(n):
         return torch.zeros(n, dtype=torch.float32, device=dev)
 
+    base = np.asarray(controls.formant_base_freq, f32)
+    base_band = (base * f32(consts.fft_samples) - f32(0.5)).astype(f32)
     if flags.formant_auto:
-        # no base frequency given (the controls are scalars, so JAX's
-        # per-block select of a given base never applies): pitch estimate
+        # no base frequency given (in some block): pitch estimate
         # (:927-968), the top-3 scan (kernel F), the harmonic heuristic and
         # the freqEstimateWeighted chains over blocks (C): the weighted
         # estimates and the weights of every clip, stacked as independent
@@ -133,11 +176,17 @@ def _formant_ratio(metric: torch.Tensor, batch: int,
         if dbg is not None:
             dbg.update(freq_estimate_weighted=few, freq_weight=fw)
         freq_estimate = (few / (fw + float(f32(1e-30)))).reshape(R)
+        if controls.automated and (base > 0).any():
+            # the blocks whose automation gives a base take it (JAX
+            # planner.py:395-399)
+            use = torch.as_tensor(np.tile(base > 0, batch), device=dev)
+            given = torch.as_tensor(np.tile(base_band, batch), device=dev)
+            freq_estimate = torch.where(use, given, freq_estimate)
+    elif controls.automated:
+        freq_estimate = torch.as_tensor(np.tile(base_band, batch), device=dev)
     else:
-        base = f32(controls.formant_base_freq)
-        base_band = float(f32(f32(base * f32(consts.fft_samples)) - f32(0.5)))
-        freq_estimate = torch.full((R,), base_band, dtype=torch.float32,
-                                   device=dev)
+        freq_estimate = torch.full((R,), float(base_band),
+                                   dtype=torch.float32, device=dev)
 
     # envelope: two max steps with the decay, two min steps with its
     # inverse, each a backward then a forward pass, each pass starting from
@@ -153,7 +202,14 @@ def _formant_ratio(metric: torch.Tensor, batch: int,
     lo_i, hi_i, frac, below = _formant_targets(
         controls, flags.formant_compensation, B, consts.fft_samples, dev)
     env_pad = F.pad(env, (0, 2))
-    lo, hi = env_pad[:, lo_i], env_pad[:, hi_i]
+    if lo_i.dim() == 1:
+        lo, hi = env_pad[:, lo_i], env_pad[:, hi_i]
+    else:
+        # per-block targets [nB, B]: a clipped gather along each row
+        env_b = env_pad.reshape(batch, nB, B + 2)
+        lo, hi = (torch.gather(env_b, 2, i.expand(batch, nB, B)).reshape(R, B)
+                  for i in (lo_i, hi_i))
+        frac, below = frac.repeat(batch, 1), below.repeat(batch, 1)
     target_e = torch.where(below, torch.zeros((), device=dev),
                            lo + (hi - lo) * frac)
     ratio = target_e / (env + float(f32(1e-30)))
@@ -163,24 +219,56 @@ def _formant_ratio(metric: torch.Tensor, batch: int,
     return ratio
 
 
+def _random_vote_positions(base, btf1, btf2, longv: int):
+    """The randomised regime's four vote position sets (JAX planner.py:
+    529-532, 589-596): base less btf1 and less longv*btf1 (down), base
+    shifted one and longv bins up less btf2 and less longv*btf2 (up), each
+    product and subtraction a float32 op of its own.  The shift zero-fills
+    the top bins, whose positions go negative: A reads 0 there, and a1/a2
+    mask those bins."""
+    return [base - btf1, base - float(longv) * btf1,
+            _shift_up(base, 1) - btf2,
+            _shift_up(base, longv) - float(longv) * btf2]
+
+
+def _lookup(rows_list, specs, pos, plain: bool, batch: int, dbg):
+    """One multi-set interpolation (kernel A) of rows_list at the position
+    sets of specs, (pos [R, B], rows read), whose positions are the slices
+    of the stacked pos [R, sets, B]: per set the looked-up rows as [batch,
+    nB, B] tensors, complex where the row is."""
+    planes, pos_sets, kinds = interp.pack(rows_list, specs)
+    if plain:
+        results, _ = interp.interp_multi_plain(planes, pos_sets)
+    else:
+        results, _ = interp.interp_multi(planes, pos_sets, pos=pos)
+    if dbg is not None:
+        dbg.update(interp=(planes, pos_sets), pos=pos)
+    return [[v.reshape(batch, -1, v.shape[-1]) for v in o]
+            for o in interp.unpack(results, specs, kinds)]
+
+
 def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
                   arrays: dict, controls: spectral.Controls,
                   flags: spectral.SpectralFlags,
                   consts: spectral.SpectralConsts, plain: bool = False,
-                  debug: bool = False):
+                  debug: bool = False, seeds=None):
     """spectra/prev_spectra [batch, nB, ch, B] complex64; arrays = the
-    schedule's numpy flags.  Returns SweepInputs, or (SweepInputs, dict of
-    intermediates) with debug=True.  plain=True runs the plain PyTorch
-    versions of the kernels on any device (for comparisons)."""
+    schedule's numpy flags; seeds, one integer a clip (default 0, 1, ...),
+    seed the randomised regime above 2x.  Returns SweepInputs, or
+    (SweepInputs, dict of intermediates) with debug=True.  plain=True runs
+    the plain PyTorch versions of the kernels on any device (for
+    comparisons)."""
     batch, nB, ch, B = spectra.shape
     dev = spectra.device
     longv = consts.long_vertical_step
     new = arrays["new_spectrum"]
     reanalyse = arrays["reanalyse"]
     tf = np.maximum(arrays["time_factor"], f32(1.0 / MAX_CLEAN_STRETCH))
-    if (tf > f32(MAX_CLEAN_STRETCH)).any():
-        raise NotImplementedError("stretches above 2x (randomised phases) "
-                                  "are not ported yet")
+    any_random = bool((tf > f32(MAX_CLEAN_STRETCH)).any())
+    if controls.automated and len(controls.freq_multiplier) != nB:
+        raise ValueError(f"per-block controls of "
+                         f"{len(controls.freq_multiplier)} blocks for a plan "
+                         f"of {nB}")
     dbg = {}
     rotor = torch.as_tensor(consts.rotor, device=dev)
 
@@ -217,6 +305,20 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
                  + input_eff.imag * input_eff.imag)         # [batch, nB, ch, B]
     ltf = (f32(longv) * tf).astype(f32)
     R = batch * nB
+
+    def rows(z):
+        return z.reshape(R, B)
+
+    if any_random:
+        # ---- random binTimeFactors (:747-757) per bin, from each clip's
+        # seed: btf1 for the down votes, btf2 for the up votes -------------
+        seeds = range(batch) if seeds is None else [int(x) for x in seeds]
+        if len(seeds) != batch:
+            raise ValueError(f"{len(seeds)} seeds for {batch} clips")
+        btf1, btf2 = (rows(t) for t in _random_time_factors(tf, seeds, B,
+                                                              flags, dev))
+        if debug:
+            dbg.update(btf1=btf1, btf2=btf2)
     if flags.mapped or flags.process_formants:
         # cross-channel energy, before the formant ratio
         energy = in_energy[:, :, 0]
@@ -254,33 +356,38 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
         # ---- prediction lookups at the mapped positions (:697-719) --------
         # one multi-set call (kernel A) on G's position sets: the prelim
         # lookups of input, prevInput and energy at input_bin, and the vote
-        # taps of the input at input_bin - tf and input_bin - longv*tf
-        def rows(z):
-            return z.reshape(R, B)
-
+        # taps of the input at input_bin - tf and input_bin - longv*tf; in
+        # the randomised regime the four vote sets at the drawn factors
         rows_list = ([rows(input_eff[:, :, c]) for c in range(ch)]
                      + [rows(prev_eff[:, :, c]) for c in range(ch)]
                      + [rows(in_energy[:, :, c]) for c in range(ch)])
-        specs = [(pos[:, 0], 3 * ch), (pos[:, 1], ch), (pos[:, 2], ch)]
-        planes, pos_sets, kinds = interp.pack(rows_list, specs)
-        if plain:
-            results, _ = interp.interp_multi_plain(planes, pos_sets)
-        else:
-            results, _ = interp.interp_multi(planes, pos_sets, pos=pos)
-        vals, sd, ld = [[v.reshape(batch, nB, B) for v in o]
-                        for o in interp.unpack(results, specs, kinds)]
+        if any_random:
+            pos = torch.stack([pos[:, 0]] + _random_vote_positions(
+                pos[:, 0], btf1, btf2, longv), 1)
+        specs = [(pos[:, 0], 3 * ch)] + [(pos[:, k], ch)
+                                          for k in range(1, pos.shape[1])]
+        vals, *votes = _lookup(rows_list, specs, pos, plain, batch,
+                               dbg if debug else None)
         pos_grad = torch.clamp(freq_grad.reshape(batch, nB, B), min=0)
         pi = vals[:ch]
         prev_i = vals[ch:2 * ch]
         pe = [v * pos_grad for v in vals[2 * ch:]]
-        if debug:
-            dbg.update(interp=(planes, pos_sets))
     else:
         pe = [in_energy[:, :, c] for c in range(ch)]
         pi = [input_eff[:, :, c] for c in range(ch)]
         prev_i = [prev_eff[:, :, c] for c in range(ch)]
-        sd = [interp._interp_shift_static(p, tf) for p in pi]
-        ld = [interp._interp_shift_static(p, ltf) for p in pi]
+        if any_random:
+            # per-bin vote positions about the identity map, b less the
+            # drawn factors: four sets over the input's planes (kernel A)
+            base = torch.arange(B, dtype=torch.float32, device=dev)
+            pos = torch.stack(_random_vote_positions(base, btf1, btf2,
+                                                     longv), 1)
+            votes = _lookup([rows(p) for p in pi],
+                            [(pos[:, k], ch) for k in range(4)], pos, plain,
+                            batch, dbg if debug else None)
+        else:
+            votes = [[interp._interp_shift_static(p, tf) for p in pi],
+                     [interp._interp_shift_static(p, ltf) for p in pi]]
 
     pe_prev = [F.pad(x[:, :-1], (0, 0, 1, 0)) for x in pe]
     if new.all():
@@ -297,12 +404,18 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
     mc = torch.argmax(torch.stack(pe, 0), 0).to(torch.int32)
     pi_max = _sel(mc, pi)
     b_idx = torch.arange(B, device=dev)
-    # both vote branches use the same binTimeFactor, so the up positions
-    # are the down positions shifted one (or longv) bins up (:764-786)
+    sd, ld = votes[:2]
     d1 = _where0(b_idx > 0, _cmulc(pi_max, _sel(mc, sd)))
     d2 = _where0(b_idx >= longv, _cmulc(pi_max, _sel(mc, ld)))
-    up_short = _sel(mc, [_shift_up(x, 1) for x in sd])
-    up_long = _sel(mc, [_shift_up(x, longv) for x in ld])
+    if any_random:
+        # the up votes draw their own factors (btf2): their own lookups
+        up_short, up_long = _sel(mc, votes[2]), _sel(mc, votes[3])
+    else:
+        # both vote branches use the same binTimeFactor, so the up
+        # positions are the down positions shifted one (or longv) bins up
+        # (:764-786)
+        up_short = _sel(mc, [_shift_up(x, 1) for x in sd])
+        up_long = _sel(mc, [_shift_up(x, longv) for x in ld])
     pi_up1 = _sel(mc, [_shift_up(x, 1) for x in pi])
     pi_upl = _sel(mc, [_shift_up(x, longv) for x in pi])
     c1_up1 = _sel(mc, [_shift_up(x, 1) for x in c1])

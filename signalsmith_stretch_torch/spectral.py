@@ -10,12 +10,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import prng
 from .config import StretchConfig
 
 f32 = np.float32
@@ -66,12 +67,19 @@ class SpectralFlags:
     mapped: bool                  # freqMultiplier != 1 (:300)
     process_formants: bool = False        # (:310)
     formant_compensation: bool = False
-    formant_auto: bool = True     # formantBaseFreq <= 0: run the pitch
-                                  # estimator (:982-983)
+    formant_auto: bool = True     # formantBaseFreq <= 0 (in some block):
+                                  # run the pitch estimator (:982-983)
+    # the reference's RandomEngine (:34-39, 610-616): a callable (key,
+    # shape, minval, maxval) -> float32 tensor of uniform draws, consumed
+    # only by the randomised binTimeFactors above 2x (:747-757); key is a
+    # clip's prng.key(seed).  None: prng.uniform, JAX's seeded threefry.
+    random_engine: Optional[Callable] = None
 
 
 class Controls(NamedTuple):
-    """Control scalars, numpy float32 (so host arithmetic rounds to f32)."""
+    """Control values, numpy float32 (so host arithmetic rounds to f32):
+    each a scalar, or under automation an [nB] array of one value per
+    block (the JAX package's per-block Controls leaves)."""
     freq_multiplier: np.float32
     freq_tonality_limit: np.float32
     formant_multiplier: np.float32 = f32(1)
@@ -82,24 +90,72 @@ class Controls(NamedTuple):
     def make(cls, freq_multiplier=1.0, freq_tonality_limit=1.0):
         return cls(f32(freq_multiplier), f32(freq_tonality_limit))
 
+    @property
+    def automated(self) -> bool:
+        """One value per block, not one for the render."""
+        return np.ndim(self.freq_multiplier) > 0
+
+    def tile(self, rows: int) -> "Controls":
+        """Per-row values for `rows` rows block-major per clip (row r is
+        block r % nB); scalar controls as they are."""
+        if not self.automated:
+            return self
+        n = len(self.freq_multiplier)
+        if rows % n:
+            raise ValueError(f"{rows} rows are not clips of {n} blocks")
+        return Controls(*[np.tile(np.asarray(v, f32), rows // n)
+                          for v in self])
+
+    def key(self) -> tuple:
+        """A hashable key of the values (bytes and shape of each)."""
+        return tuple((np.asarray(v, f32).tobytes(), np.shape(v))
+                     for v in self)
+
+    @classmethod
+    def from_key(cls, key) -> "Controls":
+        vals = [np.frombuffer(b, f32).reshape(shape) for b, shape in key]
+        return cls(*[f32(v) if v.ndim == 0 else v.copy() for v in vals])
+
+
+def _bcast(value, like: torch.Tensor):
+    """A control value against `like`: a scalar as a Python float, an [n]
+    array as an [n, 1] float32 tensor on like's device (a value per row)."""
+    if np.ndim(value) == 0:
+        return float(value)
+    return torch.as_tensor(np.asarray(value, f32), device=like.device)[:, None]
+
 
 # ---------------------------------------------------------------------------
 # Frequency maps (signalsmith-stretch.h:850-856)
 # ---------------------------------------------------------------------------
 def map_freq(freq: torch.Tensor, controls: Controls) -> torch.Tensor:
-    limit = f32(controls.freq_tonality_limit)
-    mult = f32(controls.freq_multiplier)
-    above = freq + float(f32(f32(mult - f32(1)) * limit))
-    return torch.where(freq > float(limit), above, freq * float(mult))
+    """Per-row controls ([n] arrays) broadcast as [n, 1] against freq."""
+    limit = np.asarray(controls.freq_tonality_limit, f32)
+    mult = np.asarray(controls.freq_multiplier, f32)
+    above_off = (mult - f32(1)) * limit          # float32, rounded twice
+    return torch.where(freq > _bcast(limit, freq),
+                       freq + _bcast(above_off, freq),
+                       freq * _bcast(mult, freq))
 
 
 def inv_map_formant(freq: torch.Tensor, controls: Controls) -> torch.Tensor:
-    """The inverse formant map (:920-925)."""
-    limit = f32(controls.freq_tonality_limit)
-    inv = float(f32(controls.inv_formant_multiplier))
-    above = freq + float(f32(f32(f32(1) - f32(controls.formant_multiplier))
-                             * limit))
-    return torch.where(freq * inv > float(limit), above, freq * inv)
+    """The inverse formant map (:920-925), per-row controls as map_freq."""
+    limit = np.asarray(controls.freq_tonality_limit, f32)
+    inv = _bcast(np.asarray(controls.inv_formant_multiplier, f32), freq)
+    above_off = (f32(1) - np.asarray(controls.formant_multiplier, f32)) * limit
+    return torch.where(freq * inv > _bcast(limit, freq),
+                       freq + _bcast(above_off, freq), freq * inv)
+
+
+def draw_uniform(flags: SpectralFlags, key, shape, minval: torch.Tensor,
+                 maxval: torch.Tensor) -> torch.Tensor:
+    """The randomised binTimeFactors' draws through the pluggable engine
+    (JAX spectral.draw_uniform): float32 of `shape` on minval's device."""
+    if flags.random_engine is not None:
+        out = flags.random_engine(key, shape, minval, maxval)
+        return torch.as_tensor(out, dtype=torch.float32,
+                               device=minval.device).expand(shape)
+    return prng.uniform(key, shape, minval, maxval, device=minval.device)
 
 
 def _freq_to_band(freq, consts: SpectralConsts):
@@ -145,8 +201,11 @@ def _segment_sums(index: torch.Tensor, values: torch.Tensor,
 # ---------------------------------------------------------------------------
 def _peaks_and_map(energy: torch.Tensor, smoothed: torch.Tensor,
                    controls: Controls, consts: SpectralConsts):
-    """energy, smoothed [R, B] f32 -> (input_bin, freq_grad) [R, B]."""
+    """energy, smoothed [R, B] f32 -> (input_bin, freq_grad) [R, B].
+    Per-block controls ([nB] arrays) apply to the rows block-major per
+    clip: row r takes block r % nB's."""
     R, B = energy.shape
+    controls = controls.tile(R)
     dev = energy.device
     nseg = B // 2 + 2
     above = energy > smoothed

@@ -192,10 +192,12 @@ def sweep(inputs: SweepInputs, longv: int) -> torch.Tensor:
 def spectral_all_blocks(spectra, prev_spectra, arrays,
                         controls: spectral.Controls,
                         flags: spectral.SpectralFlags,
-                        consts: spectral.SpectralConsts, plain: bool = False):
+                        consts: spectral.SpectralConsts, plain: bool = False,
+                        seeds=None):
     """Planned pipeline: [batch, nB, ch, B] spectra -> [batch, ch, nB, B]
-    output spectra (channels-major, as the synthesis stage consumes them)."""
+    output spectra (channels-major, as the synthesis stage consumes them).
+    seeds: one integer a clip for the randomised regime (plan_spectral)."""
     inputs = plan_spectral(spectra, prev_spectra, arrays, controls, flags,
-                           consts, plain=plain)
+                           consts, plain=plain, seeds=seeds)
     longv = consts.long_vertical_step
     return sweep_plain(inputs, longv) if plain else sweep(inputs, longv)

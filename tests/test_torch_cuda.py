@@ -362,3 +362,124 @@ def test_planner_launches(dev):
         assert counts["iir"] == want and peaks.launches == want
         assert sum(counts.values()) == 3 * want
     assert wavefront.launches == 0
+
+
+def _random_model(dev, ratio, semitones=0):
+    """8 kHz stereo, 2 s, above 2x: the randomised regime (mapped with a
+    pitch shift)."""
+    rate, n = 8000, 16000
+    kw = dict(semitones=semitones, tonality_hz=2000) if semitones else {}
+    return StretchModel.build(channels=2, sample_rate=rate, in_samples=n,
+                              out_samples=int(ratio * n), device=dev,
+                              **kw), n
+
+
+@pytest.mark.parametrize("ratio,semitones,sets", [(3.0, 0, 4), (2.5, 2, 5)],
+                         ids=["3x", "2.5x_pitch+2"])
+def test_interp_random_sets_match_plain(dev, ratio, semitones, sets):
+    """A on the randomised regime's position sets (four per-bin vote sets
+    unmapped; G's input bin and four vote sets mapped), bit-equal to its
+    plain version; the planner launches A once (and G once when mapped)."""
+    from signalsmith_stretch_torch import engine, planner
+    model, n = _random_model(dev, ratio, semitones)
+    clip = _t(np.random.default_rng(10).standard_normal((2, 2, n))
+              .astype(np.float32) * 0.1, dev)
+    spectra, prev = engine.analyze_stage(clip, model.plan)
+    chip_smoke.reset_counters()
+    _, dbg = planner.plan_spectral(spectra, prev, model.plan.arrays,
+                                   model.controls, model.flags,
+                                   model.plan.consts, debug=True)
+    torch.cuda.synchronize()
+    counts = chip_smoke.counters()
+    assert counts["interp_multi"] == 1
+    assert counts["peaks_map"] == int(bool(semitones))
+    planes, pos_sets = dbg["interp"]
+    pos = dbg["pos"]
+    assert pos.shape == (planes.shape[0], sets, planes.shape[2])
+    got, _ = interp.interp_multi(planes, pos_sets, pos=pos)
+    ref, _ = interp.interp_multi_plain(planes, pos_sets)
+    assert all(chip_smoke.same_bits(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("width", [512, 4096])
+def test_peaks_kernel_block_controls(dev, width):
+    """G with per-block controls (7 blocks of pitch factors and tonality
+    limits, rows block-major per clip) against its plain version on a CPU
+    copy of its inputs and on the card, bit for bit in all four planes."""
+    from signalsmith_stretch_torch import spectral
+    from signalsmith_stretch_torch.ops import peaks
+    model, _, _ = _mapped_model(dev)
+    rng = np.random.default_rng(width)
+    nB = 7
+    mult = (2.0 ** (rng.uniform(-7, 12, nB) / 12)).astype(np.float32)
+    limit = rng.uniform(0.02, 0.3, nB).astype(np.float32)
+    one = np.ones(nB, np.float32)
+    ctl = spectral.Controls(mult, limit, one, one, 0 * one)
+    e, s = (_t(a, dev) for a in chip_smoke.peaks_edge_rows(width))
+    shifts = rng.uniform(0.5, 2.0, nB).astype(np.float32)
+    tf, ltf = _t(shifts, dev), _t(np.float32(6) * shifts, dev)
+    consts = model.plan.consts
+    got = peaks.peaks_positions(e, s, tf, ltf, ctl, consts)
+    cpu = peaks.peaks_positions_plain(e.cpu(), s.cpu(), tf.cpu(), ltf.cpu(),
+                                      ctl, consts)
+    card = peaks.peaks_positions_plain(e, s, tf, ltf, ctl, consts)
+    for g, c, p in zip(got, cpu, card):
+        assert chip_smoke.same_bits(g.cpu(), c)
+        assert chip_smoke.same_bits(p.cpu(), c)
+
+
+def test_exact_on_card(dev):
+    """SignalsmithStretch.exact on the card: 3x and a pitch and formant
+    automation render finite output of the asked length, twice alike,
+    through the kernels; an all-zero clip renders zeros with no launch."""
+    from signalsmith_stretch_torch import SignalsmithStretch
+    rate, n = 8000, 16000
+    clip = (np.random.default_rng(11).standard_normal((2, n)) * 0.1).astype(
+        np.float32)
+    s = SignalsmithStretch(device=dev)
+    s.preset_default(2, rate)
+    s.set_formant_semitones(3, True)
+    auto = dict(semitones=lambda t: 3.5 * t, tonality_limit=0.25,
+                sample_rate=rate)
+    for n_out, kw, want in ((3 * n, {}, dict(interp_multi=1, peaks_map=0)),
+                            (n, dict(automation=auto),
+                             dict(interp_multi=1, peaks_map=1, decay=1,
+                                  top3=1))):
+        chip_smoke.reset_counters()
+        out, ok = s.exact(clip, n_out, **kw)
+        counts = chip_smoke.counters()
+        assert ok and out.shape == (2, n_out) and np.isfinite(out).all()
+        assert {k: counts[k] for k in want} == want
+        assert counts["sweep"] == counts["dft"] == 1
+        assert s.exact(clip, n_out, **kw)[0].tobytes() == out.tobytes()
+    chip_smoke.reset_counters()
+    out, ok = s.exact(np.zeros_like(clip), n)
+    assert ok and not out.any() and not any(chip_smoke.counters().values())
+
+
+def test_cli_on_card(dev, tmp_path):
+    """The CLI on the card (its default device), raw I/O: round(n * 1.25)
+    samples, bit-equal to exact() on the card."""
+    import os
+    import subprocess
+    import sys
+    from signalsmith_stretch_torch import SignalsmithStretch
+    from signalsmith_stretch_torch.io import read_raw, write_raw
+    rate, n = 8000, 16000
+    clip = (np.random.default_rng(12).standard_normal((2, n)) * 0.1).astype(
+        np.float32)
+    inp, outp = str(tmp_path / "in.raw"), str(tmp_path / "out.raw")
+    write_raw(inp, clip, rate)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-m", "signalsmith_stretch_torch.cli",
+                        inp, outp, "--raw", "--time=1.25", "--semitones=3"],
+                       capture_output=True, text=True, timeout=600, cwd=root,
+                       env=dict(os.environ, PYTHONPATH=root))
+    assert r.returncode == 0, r.stderr[-800:]
+    out, orate = read_raw(outp)
+    s = SignalsmithStretch(device=dev)
+    s.preset_default(2, rate)
+    s.set_transpose_semitones(3, 8000 / rate)
+    want, ok = s.exact(clip, round(n * 1.25))
+    assert orate == rate and out.shape == (2, round(n * 1.25))
+    np.testing.assert_array_equal(out, want)

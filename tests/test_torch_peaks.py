@@ -143,9 +143,7 @@ def peaks_kernel_model(energy, smoothed, tf, ltf, controls, N, threads=512,
     nB = len(tf)
     NW, NS, W = threads // 32, -(-B // 256), -(-B // 32)
     vec = vec if B % 4 == 0 else 1
-    limit = f32(controls.freq_tonality_limit)
-    mult = f32(controls.freq_multiplier)
-    above_off = f32(f32(mult - f32(1)) * limit)
+    ctl = peaks.map_constants(controls)          # [1 or nB, 3]
     Nf, inf = f32(N), f32(np.inf)
     inv_n = f32(f32(1) / Nf)
     nseg = B // 2 + 2
@@ -164,6 +162,7 @@ def peaks_kernel_model(energy, smoothed, tf, ltf, controls, N, threads=512,
                 buffers[(it + 1) % 2] = row + grid
             E, S = energy[row], smoothed[row]
             visited[row] += 1
+            limit, mult, above_off = ctl[row % len(ctl)]
 
             # flags: words by ballot, segments' start counts
             above = np.zeros(W + 1, np.uint64)    # above[W] stays 0
@@ -333,5 +332,72 @@ def test_peaks_kernel_model_matches_plain(threads, B):
     ref = peaks.peaks_positions_plain(
         torch.as_tensor(e), torch.as_tensor(s), torch.as_tensor(tf),
         torch.as_tensor(ltf), model.controls, model.plan.consts)
+    for g, r in zip(got, ref):
+        _assert_bits(g, r.numpy())
+
+
+def _block_controls(nB, seed=0):
+    """Per-block controls (automation) for nB blocks: pitch factors from
+    -7 to +12 semitones, tonality limits from none to 1 kHz at 8 kHz."""
+    rng = np.random.default_rng(seed)
+    mult = (2.0 ** (rng.uniform(-7, 12, nB) / 12)).astype(f32)
+    limit = np.where(rng.uniform(size=nB) < 0.3, f32(1),
+                     rng.uniform(0.02, 0.125, nB)).astype(f32)
+    fm = np.ones(nB, f32)
+    return spectral.Controls(mult, limit, fm, fm, np.zeros(nB, f32))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_block_controls_match_jax(seed):
+    """Per-block controls through the plain peaks map and its position
+    sets (peaks_positions_plain), two clips of 7 blocks (rows block-major
+    per clip: row r takes block r % 7's controls), bit-equal to JAX's
+    _peaks_and_map vmapped over rows with each row's block's controls; and
+    constant per-block controls bit-equal to the scalar controls."""
+    model, jm = _models()
+    consts = model.plan.consts
+    e, s = chip_smoke.peaks_edge_rows(consts.bands, seed=seed)
+    R, nB = e.shape[0], 7
+    ctl = _block_controls(nB, seed=seed)
+    tf, ltf = (torch.as_tensor(a) for a in _shifts(nB, seed=seed))
+    got = peaks.peaks_positions_plain(torch.as_tensor(e), torch.as_tensor(s),
+                                      tf, ltf, ctl, consts)
+    rows = ctl.tile(R)
+    jctl = jspectral.Controls(*[jnp.asarray(v) for v in rows])
+    fn = jax.vmap(lambda a, b, c: jspectral._peaks_and_map(
+        a, b, c, jm.flags, consts))
+    ref = [np.asarray(x) for x in fn(jnp.asarray(e), jnp.asarray(s), jctl)]
+    _assert_bits(got[0][:, 0].numpy(), ref[0])
+    _assert_bits(got[1].numpy(), ref[1])
+    blk = np.arange(R) % nB
+    _assert_bits(got[0][:, 1].numpy(), ref[0] - tf.numpy()[blk][:, None])
+    _assert_bits(got[0][:, 2].numpy(), ref[0] - ltf.numpy()[blk][:, None])
+    const = spectral.Controls(*[np.full(nB, v, f32) for v in model.controls])
+    scalar = peaks.peaks_positions_plain(torch.as_tensor(e),
+                                         torch.as_tensor(s), tf, ltf,
+                                         model.controls, consts)
+    same = peaks.peaks_positions_plain(torch.as_tensor(e), torch.as_tensor(s),
+                                       tf, ltf, const, consts)
+    for a, b in zip(scalar, same):
+        _assert_bits(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("threads", [512, 64])
+@pytest.mark.parametrize("B", [7, 300, 1000])
+def test_peaks_kernel_model_block_controls(threads, B):
+    """The kernel's phases with per-block map constants (row r reads block
+    r % nB's limit, mult and above_off) bit-equal to the plain version
+    under the same per-block controls."""
+    model, _ = _models()
+    e, s = _rows(B, seed=3 * B + threads)
+    R = e.shape[0]
+    nB = R // 2
+    ctl = _block_controls(nB, seed=B)
+    tf, ltf = _shifts(nB, seed=B)
+    got = peaks_kernel_model(e, s, tf, ltf, ctl,
+                             model.plan.consts.fft_samples, threads)
+    ref = peaks.peaks_positions_plain(
+        torch.as_tensor(e), torch.as_tensor(s), torch.as_tensor(tf),
+        torch.as_tensor(ltf), ctl, model.plan.consts)
     for g, r in zip(got, ref):
         _assert_bits(g, r.numpy())

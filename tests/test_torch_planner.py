@@ -12,6 +12,8 @@ torch and XLA round a complex product's real and imaginary parts in
 different orders (the vote coefficients measure up to 3e-7); the energies,
 prediction inputs and the max-channel choice measure bit-equal.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,6 +39,11 @@ CASES = {
     "pitch+12_1.25": (1.25, 12, 2000),
     "pitch+12_1.004": (1.004, 12, 2000),
     "pitch-5_1.0": (1.0, -5, 0),
+    # above 2x: the randomised regime, JAX's draws from the same seed
+    "2.5": (2.5, 0, 0),
+    "3.0": (3.0, 0, 0),
+    "pitch+2_2.5": (2.5, 2, 2000),
+    "pitch-5_3.0": (3.0, -5, 0),
 }
 
 
@@ -72,14 +79,21 @@ def _close(got, ref, name):
     assert err <= RTOL * scale, (name, err, scale)
 
 
-def _plan_both(sig, rate, case, debug=False):
+def _plan_both(sig, rate, case, debug=False, engines=None):
+    """The JAX and the port's planner on the same spectra, seed 0 (the
+    port's default for a batch of one); engines = (JAX random_engine,
+    port random_engine) replace the default draws on both sides."""
     model, jm = _models(sig, rate, case)
+    jflags, flags = jm.flags, model.flags
+    if engines is not None:
+        jflags = dataclasses.replace(jflags, random_engine=engines[0])
+        flags = dataclasses.replace(flags, random_engine=engines[1])
     js, jp = jengine.analyze_stage(jnp.asarray(sig), jm.plan)
     ref = jplanner.plan_spectral(js, jp, jm.plan.arrays, jm.controls,
-                                 jm.flags, jm.plan.consts, 0, debug=debug)
+                                 jflags, jm.plan.consts, 0, debug=debug)
     got = planner.plan_spectral(
         torch.as_tensor(np.array(js))[None], torch.as_tensor(np.array(jp))[None],
-        model.plan.arrays, model.controls, model.flags, model.plan.consts,
+        model.plan.arrays, model.controls, flags, model.plan.consts,
         debug=debug)
     return got, ref, model
 
@@ -96,6 +110,34 @@ def test_sweep_inputs_match_jax(stereo_signal, case):
         if k != "mc":
             assert g[k].dtype == r[k].dtype, k
             _close(g[k], r[k], k)
+
+
+def _midpoint_jax(key, shape, minval, maxval):
+    return jnp.broadcast_to((jnp.asarray(minval, jnp.float32)
+                             + jnp.asarray(maxval, jnp.float32))
+                            * jnp.float32(0.5), shape).astype(jnp.float32)
+
+
+def _midpoint_torch(key, shape, minval, maxval):
+    return ((minval + maxval) * 0.5).expand(shape)
+
+
+@pytest.mark.parametrize("case", ["3.0", "pitch+2_2.5"])
+def test_random_engine_hook_matches_jax(stereo_signal, case):
+    """A random_engine (the reference's RandomEngine) injected on both
+    sides, every draw at the midpoint of its range, unmapped and mapped:
+    the SweepInputs leaf by leaf at the file's tolerance, and not those of
+    the default draws."""
+    sig, rate = stereo_signal
+    got, ref, _ = _plan_both(sig, rate, case,
+                             engines=(_midpoint_jax, _midpoint_torch))
+    g, r = _leaves(got, 0), _leaves(ref)
+    np.testing.assert_array_equal(g["mc"], r["mc"])
+    for k in g:
+        if k != "mc":
+            _close(g[k], r[k], k)
+    default = _leaves(_plan_both(sig, rate, case)[0], 0)
+    assert not np.array_equal(default["a1"], g["a1"])
 
 
 @pytest.mark.parametrize("case", ["pitch+12_1.0", "pitch+12_1.25"])
@@ -203,8 +245,14 @@ def test_vote_shifts_built_once(stereo_signal):
 
 
 def test_above_twice_stretch_is_not_ported(stereo_signal):
+    """Stretches above 2x were once refused; the randomised regime is
+    ported now, so a 3x render is finite, of the asked length, and its
+    clips' seeds (0 and 1 by default) give different renders of one
+    clip."""
     sig, rate = stereo_signal
     n = sig.shape[1]
     model = StretchModel.build(2, rate, n, 3 * n, device="cpu")
-    with pytest.raises(NotImplementedError):
-        model.batched(sig[None])
+    out = model.batched(np.stack([sig, sig]))
+    assert out.shape == (2, 2, 3 * n) and bool(torch.isfinite(out).all())
+    assert not torch.equal(out[0], out[1])
+    assert torch.equal(out[1], model(sig, seed=1))

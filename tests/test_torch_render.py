@@ -129,8 +129,9 @@ def test_default_device_is_cuda():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves jax and the JAX package
-    out of sys.modules."""
+    """Importing every module of the port (the library object, the CLI,
+    the I/O and the draws among them) leaves jax and the JAX package out
+    of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import signalsmith_stretch_torch as p\n"
@@ -139,7 +140,9 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'signalsmith_stretch_tpu')]\n"
-        "assert len(names) >= 12, names\n"
+        "assert len(names) >= 16, names\n"
+        "for n in ('api', 'cli', 'io', 'io.wav', 'prng'):\n"
+        "    assert p.__name__ + '.' + n in names, n\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
