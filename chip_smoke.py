@@ -19,7 +19,8 @@ Phases, in order; any failure exits non-zero before the last line:
      and the gradient, also on edge rows at four widths, and against the
      plain version on a CPU copy of its inputs: each run summed
      bin-ascending; its time split by phase through its timed entry, and
-     its device time in a render) and the diagonal sweep (B); on the
+     its device time in a render), G's runs and out entries (the split
+     around a custom map) the same way, and the diagonal sweep (B); on the
      auto-base formant configuration's metric the decay scans (E: the
      envelope's eight passes in one launch, and each single pass) and the
      top-3 scan (F, also on corner rows); every kernel but D bit-equal, C
@@ -31,9 +32,14 @@ Phases, in order; any failure exits non-zero before the last line:
      timed, and the seeded draws (prng.uniform) timed beside the sweep;
   4. renders of stereo48k_default_1.25x, stereo48k_pitch+12_tonality8k,
      formant_vocal_shift (base 220 Hz), formant_vocal_shift_auto (base
-     estimated per block), stereo48k_3x_random (3x, no pitch map) and
-     stereo48k_2.5x_pitch+2_tonality8k at batch 8 x 10 s stereo 48 kHz
-     through StretchModel.batched, with each configuration's launch counts,
+     estimated per block), stereo48k_3x_random (3x, no pitch map),
+     stereo48k_2.5x_pitch+2_tonality8k, stereo48k_custom_tonality_map
+     (pitch+12's map as a torch callable through G's runs and out entries:
+     its render bit-identical to pitch+12's) and
+     stereo48k_1.25x_power_warp_formantcomp (a power warp, formant
+     compensation through the callable, base estimated) at batch 8 x 10 s
+     stereo 48 kHz through StretchModel.batched, with each configuration's
+     launch counts,
      finiteness, shape, run-to-run bit identity, and a batch-1 clip (3 s
      for the two randomised cells) through the kernels against the same
      clip through the plain versions: the spectral stage (A, B, C, E, F, G)
@@ -47,7 +53,9 @@ Phases, in order; any failure exits non-zero before the last line:
      and on the card, and a 3 s clip's render gate as in phase 4;
   6. the CLI (python3 -m signalsmith_stretch_torch.cli) in a subprocess on
      a 10 s stereo 16-bit WAV at 1.25x and +3 semitones: its file equal to
-     exact()'s render of the same samples, quantised the same way;
+     exact()'s render of the same samples, quantised the same way; then the
+     dev CLI (cli_dev) twice on a 10 s WAV: the golden snapshot, then the
+     -60 dB gate against it with --profile, the allocation guard on both;
   7. the kernel table as one JSON line, the nvidia-smi line, and the device
      line {"ok": true, "device": {...}} last.  A kernel's `ms` is the median
      of 20 launches, each alone between CUDA events (5 for B); `ms_b2b` the
@@ -84,8 +92,17 @@ CONFIGS = (
     ("stereo48k_3x_random", 3.0, {}),
     ("stereo48k_2.5x_pitch+2_tonality8k", 2.5, dict(semitones=2,
                                                     tonality_hz=8000)),
+    # custom frequency maps (a torch callable between G's two entries):
+    # pitch+12's map written as a callable, and a power warp with formant
+    # compensation (the formant targets through the callable too)
+    ("stereo48k_custom_tonality_map", 1.0, dict(
+        semitones=12, tonality_hz=8000, custom_map="tonality")),
+    ("stereo48k_1.25x_power_warp_formantcomp", 1.25, dict(
+        formant_compensation=True, formant_base_hz=0,
+        custom_map="power_warp")),
 )
-STRETCH, MAPPED, _, FORMANT_AUTO, RANDOM, RANDOM_MAPPED = CONFIGS
+(STRETCH, MAPPED, _, FORMANT_AUTO, RANDOM, RANDOM_MAPPED, CUSTOM_TONALITY,
+ POWER_WARP) = CONFIGS
 # the batch-1 plain gate of these cells renders a shorter clip: the plain
 # sweep takes ~30 ms a block row, and a 10 s clip at 3x has ~1000 rows
 GATE_SECONDS = {RANDOM[0]: 3.0, RANDOM_MAPPED[0]: 3.0}
@@ -98,6 +115,8 @@ PEAK_F32 = 67e12
 DEVICE = "cuda"
 # timed repeats: kernels (CUDA events), plain versions, whole renders
 KERNEL_REPS, PLAIN_REPS, RENDER_REPS = 20, 2, 3
+# rounds of two cells' renders timed in turns (renders_in_turns)
+TURN_REPS = 8
 # the planner's slew smoothing: four passes, down then up, twice
 SMOOTHING = (True, False, True, False)
 
@@ -117,6 +136,11 @@ KERNELS = (
      "signalsmith_stretch_tpu/spectral.py:325"),
     ("peaks_map", "signalsmith_stretch_torch/csrc/peaks.cu",
      "signalsmith_stretch_tpu/spectral.py:260"),
+    # G split around a custom map: the runs and sums, then the output map
+    ("peaks_runs", "signalsmith_stretch_torch/csrc/peaks.cu",
+     "signalsmith_stretch_tpu/spectral.py:261"),
+    ("peaks_out", "signalsmith_stretch_torch/csrc/peaks.cu",
+     "signalsmith_stretch_tpu/spectral.py:276"),
 )
 DFT_TOL = 3e-6        # of the spectrum's peak magnitude (tests/test_stft.py)
 
@@ -325,8 +349,11 @@ def build_kernels():
     t0 = time.perf_counter()
     report = _build.build()
     for name, (secs, log) in report.items():
-        usage = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+        usage = [ln.strip().split("'")[1][:40]
+                 if "entry function" in ln else ln.strip()
+                 for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln
+                 or "entry function" in ln]
         print(f"built csrc/{name}.cu in {secs:.1f} s: {'; '.join(usage)}")
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{len(report)} sources")
@@ -334,14 +361,49 @@ def build_kernels():
         _build.entry(name)
 
 
+def tonality_map(controls):
+    """The built-in map of scalar controls (its limit, mult and above_off,
+    ops/peaks.map_constants) written as a torch callable."""
+    import torch
+    from signalsmith_stretch_torch.ops import peaks
+    limit, mult, above_off = (float(v) for v in
+                              peaks.map_constants(controls)[0])
+
+    def tonality(f):
+        return torch.where(f > limit, f + above_off, f * mult)
+    return tonality
+
+
+def power_warp(f):
+    """A custom map no multiplier expresses: 0.5 (2 f)^0.9 (the warp of
+    tests/test_torch_custom_map.py)."""
+    return 0.5 * (2 * f) ** 0.9
+
+
 def _model(cfg, batch, seconds=SECONDS):
+    """A cell's StretchModel and its clips.  A `custom_map` entry names the
+    cell's callable ("tonality": the built-in map of the cell's controls;
+    "power_warp"), set in the flags as SignalsmithStretch.set_freq_map
+    sets it: the render is mapped, and formants are processed when
+    compensating."""
+    import dataclasses
     from signalsmith_stretch_torch.models import StretchModel
     name, time_factor, kw = cfg
+    kw = dict(kw)
+    custom = kw.pop("custom_map", None)
     in_len = int(RATE * seconds)
     out_len = int(round(in_len * time_factor))
     model = StretchModel.build(channels=2, sample_rate=RATE,
                                in_samples=in_len, out_samples=out_len,
                                device=DEVICE, **kw)
+    if custom is not None:
+        fn = (tonality_map(model.controls) if custom == "tonality"
+              else power_warp)
+        flags = model.flags
+        model.flags = dataclasses.replace(
+            flags, mapped=True, custom_map=fn,
+            process_formants=(flags.process_formants
+                              or flags.formant_compensation))
     clips = make_corpus(batch, 2, in_len, RATE)
     return model, clips
 
@@ -405,6 +467,8 @@ def check_kernels():
     entries["iir"] = check_slew_scan(dbg["energy"], plan.consts.slew)
     entries["peaks_map"] = check_peaks_map(dbg["energy"], dbg["smoothed"],
                                            *dbg["shifts"], model, audio)
+    entries.update(check_peaks_split(dbg["energy"], dbg["smoothed"],
+                                     *dbg["shifts"], model, audio))
 
     # --- B: the diagonal sweep --------------------------------------------
     longv = plan.consts.long_vertical_step
@@ -683,6 +747,133 @@ def check_peaks_map(energy, smoothed, tf, ltf, model, audio):
                 bound=bound, render_ms=in_render, phases=split["phases"])
 
 
+def check_peaks_split(energy, smoothed, tf, ltf, model, audio):
+    """G split around a custom map, on the pitch+12 render's planner inputs
+    and on the edge rows of peaks_edge_rows at B = 512, 1000, 4096 and
+    8192: the runs entry (peak_in, avg_freq, n_peaks) bit-equal to its
+    plain version on a CPU copy and on the card; the out entry on the
+    runs' outputs through pitch+12's map written as a callable, bit-equal
+    to its plain version on a CPU copy and on the card, also with NaN in
+    every invalid slot; the two entries around that callable give the
+    one-launch G's four planes.  Times each entry alone, back to back and
+    inside a render of the custom tonality cell, its plain version, and
+    the callable; splits each by phase (their timed entries).  Returns
+    {name: entry}."""
+    import torch
+    from signalsmith_stretch_torch.ops import peaks
+    controls, consts = model.controls, model.plan.consts
+    fn = tonality_map(controls)
+    cases = [("pitch+12 planner inputs", energy, smoothed, tf, ltf)]
+    for width in (512, 1000, 4096, 8192):
+        e, s = (torch.as_tensor(a, device=DEVICE)
+                for a in peaks_edge_rows(width))
+        cases.append((f"edge rows at B = {width}", e, s, tf[:e.shape[0]],
+                       ltf[:e.shape[0]]))
+    err_runs = err_out = 0.0
+    for what, e, s, t1, t2 in cases:
+        B = e.shape[1]
+        runs = peaks.peak_runs(e, s, consts)
+        for where, want in (("CPU", peaks.peak_runs_plain(e.cpu(), s.cpu(),
+                                                          consts)),
+                            ("card", peaks.peak_runs_plain(e, s, consts))):
+            for name, g, w in zip(("peak_in", "avg_freq", "n_peaks"), runs,
+                                  want):
+                if g.dtype == torch.float32:
+                    err_runs = max(err_runs, max_abs(g.cpu(), w.cpu()))
+                if not same_bits(g.cpu(), w.cpu()):
+                    raise SystemExit(f"peaks_runs ({what}): {name} differs "
+                                     f"from the plain version on the "
+                                     f"{where}")
+        peak_in, avg_freq, n_peaks = runs
+        mapped = fn(avg_freq)
+        invalid = (torch.arange(peak_in.shape[1], device=DEVICE)[None]
+                   >= n_peaks[:, None])
+        nan = torch.where(invalid, torch.full_like(mapped, float("nan")),
+                          mapped)
+        got = peaks.output_positions(peak_in, mapped, n_peaks, t1, t2, B,
+                                     consts)
+        cpu = peaks.output_positions_plain(
+            peak_in.cpu(), mapped.cpu(), n_peaks.cpu(), t1.cpu(), t2.cpu(),
+            B, consts)
+        card = peaks.output_positions_plain(peak_in, mapped, n_peaks, t1,
+                                            t2, B, consts)
+        with_nan = peaks.output_positions(peak_in, nan, n_peaks, t1, t2, B,
+                                          consts)
+        one = peaks.peaks_positions(e, s, t1, t2, controls, consts)
+        for g, c, p, x, o in zip(got, cpu, card, with_nan, one):
+            err_out = max(err_out, max_abs(g.cpu(), c))
+            if not (same_bits(g.cpu(), c) and same_bits(g, p)):
+                raise SystemExit(f"peaks_out ({what}): differs from the "
+                                 f"plain version, max abs "
+                                 f"{max_abs(g.cpu(), c)}")
+            if not same_bits(x, g):
+                raise SystemExit(f"peaks_out ({what}): NaN in the invalid "
+                                 f"slots changed the output")
+            if not same_bits(o, g):
+                raise SystemExit(f"peaks_out ({what}): the split G differs "
+                                 f"from the one-launch G")
+        print(f"G split {what}: {tuple(e.shape)}: runs entry bit-equal to "
+              f"its plain version on the CPU and on the card "
+              f"({int(n_peaks.sum())} peaks); out entry bit-equal to its "
+              f"plain version on the CPU and on the card, unchanged by NaN "
+              f"in the invalid slots, and the split equal to the one-launch "
+              f"G in all four planes")
+
+    R, B = energy.shape
+    nseg = B // 2 + 2
+    runs = peaks.peak_runs(energy, smoothed, consts)
+    peak_in, avg_freq, n_peaks = runs
+    mapped = fn(avg_freq)
+    out_args = (peak_in, mapped, n_peaks, tf, ltf, B, consts)
+    runs_split = phase_split(
+        lambda: peaks.runs_stamps(energy, smoothed, consts),
+        peaks.RUNS_PHASES, R, f"G runs entry phase split {(R, B)}")
+    out_split = phase_split(lambda: peaks.out_stamps(*out_args),
+                            peaks.OUT_PHASES, R,
+                            f"G out entry phase split {(R, B)}")
+    custom_model, _ = _model(CUSTOM_TONALITY, BATCH)
+    in_render = {k: render_kernel_ms(custom_model, audio, k)
+                 for k in ("peaks_runs_kernel", "peaks_out_kernel")}
+    n_valid = int(n_peaks.sum())
+    entries = {}
+    for name, call, plain, nbytes, flops, err, split, kernel in (
+            ("peaks_runs", lambda: peaks.peak_runs(energy, smoothed, consts),
+             lambda: peaks.peak_runs_plain(energy, smoothed, consts),
+             # two planes read, two [R, nseg] planes and the counts written
+             4 * (2 * R * B + 2 * R * nseg + R),
+             3 * int((energy > smoothed).sum()) + 3 * n_valid, err_runs,
+             runs_split, "peaks_runs_kernel"),
+            ("peaks_out", lambda: peaks.output_positions(*out_args),
+             lambda: peaks.output_positions_plain(*out_args),
+             # the valid slots of peak_in and mapped, the counts and the
+             # shifts read, four planes written
+             4 * (2 * n_valid + R + 2 * tf.shape[0] + 4 * R * B),
+             5 * n_valid + 19 * R * B, err_out, out_split,
+             "peaks_out_kernel")):
+        bound = bound_ms(nbytes, flops)
+        entries[name] = dict(
+            max_abs_err=err, ms=cuda_ms(call, KERNEL_REPS),
+            ms_b2b=cuda_ms_b2b(call, KERNEL_REPS),
+            plain_ms=cuda_ms(plain, PLAIN_REPS), bound=bound,
+            render_ms=in_render[kernel], phases=split["phases"])
+    callable_ms = cuda_ms(lambda: fn(avg_freq), KERNEL_REPS)
+    custom_ms = cuda_ms(lambda: peaks.peaks_positions_custom(
+        energy, smoothed, tf, ltf, fn, consts), KERNEL_REPS)
+    one_ms = cuda_ms(lambda: peaks.peaks_positions(
+        energy, smoothed, tf, ltf, controls, consts), KERNEL_REPS)
+    for name, e in entries.items():
+        print(f"G {name}: {e['ms']:.4f} ms a launch alone, "
+              f"{e['ms_b2b']:.4f} ms back to back, {e['render_ms']:.4f} ms "
+              f"of device time in a {CUSTOM_TONALITY[0]} render; plain "
+              f"{e['plain_ms']:.3f} ms; bound {e['bound'][0]:.4f} ms "
+              f"({e['bound'][1]})")
+    print(f"G split around the callable: runs + callable + out "
+          f"{custom_ms:.4f} ms (the callable alone on [{R}, {nseg}] "
+          f"{callable_ms:.4f} ms), the one-launch G {one_ms:.4f} ms, each a "
+          f"call alone; {n_valid} peaks in {R} rows")
+    return entries
+
+
 def analysis_frames(cfg):
     """The main and re-analysis frames one render of cfg analyses, as one
     contiguous [frames, block] tensor on the card, and the STFT basis."""
@@ -856,7 +1047,9 @@ def counters():
     return {"interp_multi": interp.launches, "sweep": wavefront.launches,
             "iir": scan_ops.launches, "dft": dft.launches,
             "decay": scan_ops.decay_launches,
-            "top3": scan_ops.top3_launches, "peaks_map": peaks.launches}
+            "top3": scan_ops.top3_launches, "peaks_map": peaks.launches,
+            "peaks_runs": peaks.runs_launches,
+            "peaks_out": peaks.out_launches}
 
 
 def reset_counters():
@@ -864,7 +1057,7 @@ def reset_counters():
     from signalsmith_stretch_torch.ops import dft, interp, peaks, scan_ops
     interp.launches = wavefront.launches = scan_ops.launches = 0
     dft.launches = scan_ops.decay_launches = scan_ops.top3_launches = 0
-    peaks.launches = 0
+    peaks.launches = peaks.runs_launches = peaks.out_launches = 0
 
 
 def is_random(plan):
@@ -880,12 +1073,15 @@ def expected_launches(flags, random=False):
     and the peaks map (G) when mapped; the envelope's eight decay passes in
     one launch of E for formants; with the base estimated, the top-3 scan
     (F) and the two freqEstimate chains over blocks, stacked in one launch
-    of C."""
+    of C.  Under a custom map G's runs and out entries take the place of
+    its one launch."""
     auto = flags.process_formants and flags.formant_auto
+    custom = flags.mapped and flags.custom_map is not None
     return {"interp_multi": int(flags.mapped or random), "sweep": 1,
             "iir": int(flags.mapped) + int(auto), "dft": 1,
             "decay": int(flags.process_formants), "top3": int(auto),
-            "peaks_map": int(flags.mapped)}
+            "peaks_map": int(flags.mapped and not custom),
+            "peaks_runs": int(custom), "peaks_out": int(custom)}
 
 
 def stage_split(model, audio):
@@ -945,6 +1141,37 @@ def render_vs_plain(model, audio):
                 f"within {band:.2f} dB")
 
 
+def renders_in_turns(model_a, model_b, audio, reps=None):
+    """Median wall ms of model_a's and model_b's renders of audio, timed in
+    turns (a, b, b, a) so that both meet the same state of the host."""
+    import torch
+    times = ([], [])
+    for _ in range(reps or TURN_REPS):
+        for k in (0, 1, 1, 0):
+            m = (model_a, model_b)[k]
+            t0 = time.perf_counter()
+            m.batched(audio)
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def same_as_mapped(model, out, audio):
+    """The custom tonality cell's render `out` of audio against pitch+12's
+    (the same clips and seeds through the built-in map): bit-identical,
+    and the two timed in turns.  Returns the line's note."""
+    import torch
+    other = MAPPED[0]
+    mapped, _ = _model(MAPPED, BATCH)
+    if not torch.equal(mapped.batched(audio), out):
+        raise SystemExit(f"{CUSTOM_TONALITY[0]}: render differs from "
+                         f"{other}'s")
+    turns = renders_in_turns(mapped, model, audio)
+    return (f"; bit-identical to {other}'s render; in turns with it "
+            f"({TURN_REPS} rounds of theirs, ours, ours, theirs), median "
+            f"{turns[1]:.2f} ms against {turns[0]:.2f} ms")
+
+
 def render_config(cfg):
     """Phase 4 for one configuration.  Returns the launch counts of the
     counted render."""
@@ -968,6 +1195,8 @@ def render_config(cfg):
     if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
         raise SystemExit(f"{name}: output {tuple(out.shape)} (want {shape}) "
                          f"or not finite")
+    same = (same_as_mapped(model, out, audio)
+            if name == CUSTOM_TONALITY[0] else "")
 
     times = []
     for _ in range(RENDER_REPS):
@@ -996,7 +1225,8 @@ def render_config(cfg):
           f"factor {audio_s / secs:.1f}x; stages (ms) "
           + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
           + f"; peak memory {peak / 2**30:.2f} GiB; launches {counts}; "
-          f"two renders bit-identical; batch-1 kernels vs plain: {gate}")
+          f"two renders bit-identical{same}; batch-1 kernels vs plain: "
+          f"{gate}")
     del out, again, audio
     torch.cuda.empty_cache()
     return counts
@@ -1217,6 +1447,55 @@ def check_cli():
           f"said: {said[0] if said else r.stdout.strip()}")
 
 
+def check_cli_dev():
+    """The dev CLI (python3 -m signalsmith_stretch_torch.cli_dev) in a
+    subprocess on the card, twice on one 10 s stereo 16-bit WAV at 1.25x
+    and +3 semitones: the first run snapshots <output>.reference.npy, the
+    second (with --profile) passes the -60 dB golden gate against it; both
+    pass the allocation guard.  Prints each run's process time and
+    realtime factor as the CLI reports them."""
+    import tempfile
+    from signalsmith_stretch_torch.io import write_wav
+    in_len = int(RATE * SECONDS)
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        inp, outp = os.path.join(d, "in.wav"), os.path.join(d, "out.wav")
+        write_wav(inp, 0.8 * make_corpus(1, 2, in_len, RATE, seed=4)[0], RATE)
+        said = []
+        for run, extra, want in ((1, [], "snapshotted"),
+                                 (2, ["--profile"], "difference:")):
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "signalsmith_stretch_torch.cli_dev",
+                 inp, outp, "--time=1.25", "--semitones=3", *extra],
+                cwd=ROOT, capture_output=True, text=True, timeout=600,
+                env=dict(os.environ, PYTHONPATH=ROOT))
+            wall = time.perf_counter() - t0
+            if r.returncode:
+                raise SystemExit(f"cli_dev run {run}: exit {r.returncode}: "
+                                 f"{r.stdout[-1500:]} {r.stderr[-1500:]}")
+            lines = r.stdout.splitlines()
+            if (want not in r.stdout
+                    or "allocation guard: ok" not in r.stdout):
+                raise SystemExit(f"cli_dev run {run}: no {want!r} or no "
+                                 f"guard line: {r.stdout[-1500:]}")
+            process = [ln.strip() for ln in lines if "realtime" in ln]
+            gate = [ln.strip() for ln in lines if "difference:" in ln]
+            said.append(f"run {run}: {wall:.1f} s in all; "
+                        f"{process[0] if process else '?'}"
+                        + (f"; {gate[0]}" if gate else "; snapshotted"))
+        stages = [ln.strip() for ln in lines
+                  if ln.strip().split(" ")[0] in
+                  ("analysis", "plan", "sweep", "synthesis", "full")]
+        if not os.path.exists(os.path.join(d, "profile.svg")):
+            raise SystemExit("cli_dev: --profile wrote no profile.svg")
+    print(f"cli_dev: python3 -m signalsmith_stretch_torch.cli_dev in.wav "
+          f"out.wav --time=1.25 --semitones=3 on {SECONDS:g} s stereo: "
+          + "; ".join(said) + "; the allocation guard passed both; "
+          f"--profile stages: " + ", ".join(stages))
+
+
 def main():
     import torch
     import signalsmith_stretch_torch  # noqa: F401  (fails outside a checkout)
@@ -1231,6 +1510,7 @@ def main():
         for k, v in counted.items():
             launches[k] += v
     check_cli()
+    check_cli_dev()
     table = []
     for name, source, replaces in KERNELS:
         e = entries[name]

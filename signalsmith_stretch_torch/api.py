@@ -4,16 +4,16 @@ The port of signalsmith_stretch_tpu/api.py, offline part.  Control methods
 match signalsmith-stretch.h one-for-one:
   preset_default/preset_cheaper/configure        (:63-104)
   set_transpose_factor/set_transpose_semitones   (:107-117)
+  set_freq_map                                   (:119-122)
   set_formant_factor/semitones/base              (:124-135)
   block_samples/interval_samples/latencies/seek  (:42-47, 96-104, 166-207)
   exact                                          (:467-491)
 
 `exact` renders on the card (device="cuda", the default) or, when asked
 for, on the CPU with the plain versions of the kernels.  Plans are built
-once per (config, input length, output length).  Custom frequency maps
-(`set_freq_map`) and the streaming methods (`process`, `seek`,
-`output_seek`, `flush`, `reset`) are not ported yet and raise
-NotImplementedError.
+once per (config, input length, output length).  The streaming methods
+(`process`, `seek`, `output_seek`, `flush`, `reset`) are not ported yet and
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -30,8 +30,6 @@ from .spectral import Controls, SpectralFlags
 
 f32 = np.float32
 
-_CUSTOM_MAPS = ("custom frequency maps are not ported yet (ROADMAP.md §1, "
-                "custom maps)")
 _STREAMING = "streaming is not ported yet (ROADMAP.md §1, streaming)"
 
 
@@ -56,6 +54,7 @@ class SignalsmithStretch:
         self._formant_multiplier = f32(1)
         self._formant_compensation = False
         self._formant_base_freq = f32(0)
+        self._custom_map: Optional[Callable] = None
         self._plan_cache = {}
         self.last_diagnostics = {}
 
@@ -112,6 +111,7 @@ class SignalsmithStretch:
                 f32(tonality_limit) / f32(math.sqrt(f32(multiplier))))
         else:
             self._freq_tonality_limit = f32(1)
+        self._custom_map = None
 
     def set_transpose_semitones(self, semitones: float,
                                 tonality_limit: float = 0):
@@ -119,7 +119,16 @@ class SignalsmithStretch:
                                   tonality_limit)
 
     def set_freq_map(self, input_to_output: Callable):
-        raise NotImplementedError(_CUSTOM_MAPS)
+        """A custom monotonic frequency map (reference :119-122), in place
+        of the multiplier and its tonality limit until the next
+        set_transpose_factor/set_transpose_semitones.  `input_to_output`
+        takes a float32 torch tensor of normalised frequencies (cycles a
+        sample) on the render's device and returns the mapped frequencies,
+        elementwise: a contiguous float32 tensor of the same shape on the
+        same device (anything else raises; nothing is cast or copied).  It runs between the two
+        launches of the peaks kernel, and on the band centres for the
+        formant targets under pitch compensation."""
+        self._custom_map = input_to_output
 
     def set_formant_factor(self, multiplier: float,
                            compensate_pitch: bool = False):
@@ -158,14 +167,15 @@ class SignalsmithStretch:
                         self._formant_base_freq)
 
     def _flags(self) -> SpectralFlags:
-        mapped = float(self._freq_multiplier) != 1.0
+        mapped = (self._custom_map is not None
+                  or float(self._freq_multiplier) != 1.0)
         return SpectralFlags(
             mapped=mapped,
             process_formants=(float(self._formant_multiplier) != 1.0
                               or (self._formant_compensation and mapped)),
             formant_compensation=self._formant_compensation,
             formant_auto=float(self._formant_base_freq) <= 0,
-            random_engine=self._random_engine)
+            random_engine=self._random_engine, custom_map=self._custom_map)
 
     # ---- offline rendering -------------------------------------------------
     def plan(self, in_samples: int, output_samples: int) -> engine.ExactPlan:
@@ -269,14 +279,14 @@ class SignalsmithStretch:
                      ).astype(f32)
         fbase = series(automation.get("formant_base"), self._formant_base_freq)
 
-        mapped = bool((mult != 1).any())
+        mapped = bool((mult != 1).any()) or self._custom_map is not None
         flags = SpectralFlags(
             mapped=mapped,
             process_formants=bool((fm != 1).any()) or (
                 self._formant_compensation and mapped),
             formant_compensation=self._formant_compensation,
             formant_auto=bool((fbase <= 0).any()),
-            random_engine=self._random_engine)
+            random_engine=self._random_engine, custom_map=self._custom_map)
         controls = Controls(mult, limit.astype(f32), fm,
                             (f32(1) / fm).astype(f32), fbase)
         return controls, flags

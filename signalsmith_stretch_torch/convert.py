@@ -74,6 +74,11 @@ def plan_to_arrays(plan, controls=None, flags=None) -> dict:
         for k in _CONTROLS:
             d["controls." + k] = np.asarray(getattr(controls, k), np.float32)
     if flags is not None:
+        if getattr(flags, "custom_map", None) is not None:
+            # a callable is no array: dropping it would render another map
+            raise ValueError("plan_to_arrays: a custom frequency map cannot "
+                             "be carried as arrays; set it on the flags "
+                             "that controls_from_arrays returns")
         for k in _FLAGS:
             d["flags." + k] = np.asarray(bool(getattr(flags, k)))
     return d

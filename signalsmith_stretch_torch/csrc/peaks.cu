@@ -59,13 +59,28 @@
 //          B % 4 == 0 and the tensors are aligned), k[b] = the prefix plus
 //          the earlier segments' totals (zeroing the histogram as it reads
 //          it, for the next row), and writes the four planes.
+//
+// A custom frequency map (a Python callable) cannot run inside the kernel,
+// so it splits G around the callable into two entries over the same phases
+// (plain versions ops/peaks.peak_runs_plain and output_positions_plain):
+//   runs (sst_peaks_runs)   wait, flags and runs as above, with no map and
+//          no histogram; then a write phase stores each row's peak_in and
+//          avg_freq = (avg + 0.5) / N [R, nseg] (nseg = B / 2 + 2, the slots
+//          from n_peaks on 0) and n_peaks [R] int32;
+//   out (sst_peaks_out)     per row, the n_peaks[r] peaks of peak_in and of
+//          mapped [R, nseg] (the callable's output; later slots are never
+//          read, so NaN there is harmless), peak_out = mapped * N - 0.5
+//          and its histogram count, then prefix and map as above.
+// The one-launch entry keeps serving the built-in maps.
 #include <cuda_runtime.h>
 
 #define PEAKS_THREADS 512
 #define FULL 0xffffffffu
 
-// the timed entry's phases (ops/peaks.PHASES)
+// the timed entries' phases (ops/peaks.PHASES, RUNS_PHASES, OUT_PHASES)
 #define PEAKS_PHASES 5
+#define RUNS_PHASES 4
+#define OUT_PHASES 3
 
 // asynchronous copies device memory -> shared memory (sm_80+)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -192,8 +207,9 @@ __device__ __forceinline__ void map_bin(const RowPeaks& p, int b, int kb,
 
 // TIMED: thread 0 adds the clock64() cycles of phase i - 1 (from the
 // previous stamp to the barrier that ends it) to its CTA's count; at the
-// end it writes the counts, the CTA's start and end on the global timer
-// (ns) and its SM to stamps[blockIdx.x * (PEAKS_PHASES + 3) ...]
+// end (end_stamps) it writes the counts, the CTA's start and end on the
+// global timer (ns) and its SM to stamps[blockIdx.x * (P + 3) ...], P the
+// kernel's number of phases
 #define STAMP(i)                                 \
   if (TIMED && tid == 0) {                       \
     const long long c = clock64();               \
@@ -201,6 +217,224 @@ __device__ __forceinline__ void map_bin(const RowPeaks& p, int b, int kb,
     clk = c;                                     \
   }
 
+__device__ __forceinline__ void end_stamps(long long* stamps,
+                                           const long long* cycles, int P,
+                                           unsigned long long gt0) {
+  unsigned smid;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+  long long* st = stamps + (long long)blockIdx.x * (P + 3);
+  for (int i = 0; i < P; ++i) st[i] = cycles[i];
+  st[P] = (long long)gt0;
+  st[P + 1] = (long long)global_ns();
+  st[P + 2] = smid;
+}
+
+// the shared-memory tables of a row (Layout): the histogram, the peak
+// tables, the above-words and the segments' counts and totals
+struct Tables {
+  int* H;
+  float* peak_in;
+  float* peak_out;
+  unsigned* above;
+  int* seg_starts;
+  int* seg_total;
+  __device__ Tables(float* smem, const Layout& L) {
+    H = reinterpret_cast<int*>(smem + 4 * L.Bp);
+    peak_in = reinterpret_cast<float*>(H + L.HW);
+    peak_out = peak_in + L.PR;
+    above = reinterpret_cast<unsigned*>(peak_out + L.PR);
+    seg_starts = reinterpret_cast<int*>(above + L.AW);
+    seg_total = seg_starts + ((L.NS + 3) & ~3);
+  }
+};
+
+// --- flags: the above-words and each segment's run starts -----------------
+__device__ __forceinline__ void flags_phase(const float* E, const float* S,
+                                            const Tables& t, int B, int NS,
+                                            int W, int tid, int lane,
+                                            int warp) {
+  const int NW = PEAKS_THREADS >> 5;
+  if (tid == 0) t.above[W] = 0u;          // a run ends before word W
+  for (int s = warp; s < NS; s += NW) {
+    const int b0 = s << 8;
+    bool hi[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int b = b0 + (j << 5) + lane;
+      hi[j] = b < B && E[b] > S[b];
+    }
+    unsigned carry = b0 > 0 && E[b0 - 1] > S[b0 - 1];
+    int count = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int w = (s << 3) + j;
+      if (w >= W) break;                  // the same in every lane
+      const unsigned a = __ballot_sync(FULL, hi[j]);
+      if (lane == 0) t.above[w] = a;
+      count += __popc(a & ~((a << 1) | carry));
+      carry = a >> 31;
+    }
+    if (lane == 0) t.seg_starts[s] = count;
+  }
+}
+
+// --- runs: each run's id, its sums and its average band --------------------
+// thread t owns the 8 bins of chunk c = c0 + t; chunk c lies in segment
+// c / 32, which is one warp's.  peak(id, avg) is called once a run, by the
+// thread that summed it.  Returns the row's number of peaks (in every
+// thread).
+template <class Peak>
+__device__ __forceinline__ int runs_phase(const float* E, const Tables& t,
+                                          int B, int NS, int tid, int lane,
+                                          int warp, Peak peak) {
+  int n_peaks;
+  segment_base(t.seg_starts, NS, 0, lane, &n_peaks);
+  for (int c0 = 0; c0 < NS * 32; c0 += PEAKS_THREADS) {
+    const int s = (c0 >> 5) + warp;
+    if (s >= NS) break;                    // the same in every lane
+    int unused;
+    const int base = segment_base(t.seg_starts, NS, s, lane, &unused);
+    const int c = c0 + tid, b0 = c << 3;
+    unsigned st = 0;
+    if (b0 < B) {
+      const unsigned a8 = (t.above[c >> 2] >> ((c & 3) << 3)) & 0xffu;
+      const unsigned prev =
+          b0 > 0 ? (t.above[(b0 - 1) >> 5] >> ((b0 - 1) & 31)) & 1u : 0u;
+      st = a8 & ~((a8 << 1) | prev) & 0xffu;
+    }
+    const int cnt = __popc(st);
+    int id = base + warp_inclusive_scan(cnt, lane) - cnt;
+    while (st) {
+      const int a = b0 + __ffs(st) - 1;
+      st &= st - 1;
+      int w = a >> 5;                       // the run's last bin z: the
+      unsigned m = ~t.above[w] & (FULL << (a & 31));   // first 0 after a
+      while (!m) m = ~t.above[++w];
+      const int z = (w << 5) + __ffs(m) - 2;
+      float band_sum = 0.f, energy_sum = 0.f;
+#pragma unroll 4
+      for (int b = a; b <= z; ++b) {
+        const float x = E[b];
+        band_sum = band_sum + (float)b * x;
+        energy_sum = energy_sum + x;
+      }
+      peak(id, band_sum / (energy_sum == 0.f ? 1.f : energy_sum));
+      ++id;
+    }
+  }
+  return n_peaks;
+}
+
+// a peak of the output map: its input band, its output band from the
+// mapped frequency, and its count in the histogram of clamp(ceil(output),
+// 0, B)
+__device__ __forceinline__ void count_peak(const Tables& t, int id, float avg,
+                                           float mapped, float N, int B) {
+  const float out = mapped * N - 0.5f;
+  t.peak_in[id] = avg;
+  t.peak_out[id] = out;
+  atomicAdd(&t.H[(int)fminf(fmaxf(ceilf(out), 0.f), (float)B)], 1);
+}
+
+// --- prefix: each segment's inclusive prefix and its total; the map's
+// constants of each pair of neighbouring peaks ------------------------------
+// pair k (k = 1..n, the bins with k peaks at or below them) between peaks
+// k - 1 and k (past the last: input 0, output +inf), in `pairs` (four
+// tables of (B + 1) / 2), which the caller has done reading
+__device__ __forceinline__ void prefix_phase(const Tables& t, float* pairs,
+                                             int n_peaks, int B, int NS,
+                                             int tid, int lane, int warp) {
+  const int NW = PEAKS_THREADS >> 5;
+  const int nseg = B / 2 + 2, M = (B + 1) / 2;
+  for (int k = tid + 1; k <= n_peaks; k += PEAKS_THREADS) {
+    const float inf = __int_as_float(0x7f800000);
+    const int pi = min(max(k - 1, 0), nseg - 1);
+    const int ni = min(max(k, 0), nseg - 1);
+    const float prev_o = pi < n_peaks ? t.peak_out[pi] : inf;
+    const float prev_in = pi < n_peaks ? t.peak_in[pi] : 0.f;
+    const float next_o = ni < n_peaks ? t.peak_out[ni] : inf;
+    const float next_in = ni < n_peaks ? t.peak_in[ni] : 0.f;
+    pairs[k - 1] = prev_o;
+    pairs[M + k - 1] = 1.f / (next_o - prev_o);          // range_scale
+    pairs[2 * M + k - 1] = prev_in - prev_o;
+    pairs[3 * M + k - 1] = ((next_in - next_o) - prev_in) + prev_o;
+  }
+  for (int s = warp; s < NS; s += NW) {
+    int4* h = reinterpret_cast<int4*>(t.H + (s << 8) + (lane << 3));
+    int4 u = h[0], v = h[1];
+    u.y += u.x; u.z += u.y; u.w += u.z;
+    v.x += u.w; v.y += v.x; v.z += v.y; v.w += v.z;
+    const int incl = warp_inclusive_scan(v.w, lane);
+    const int ex = incl - v.w;
+    u.x += ex; u.y += ex; u.z += ex; u.w += ex;
+    v.x += ex; v.y += ex; v.z += ex; v.w += ex;
+    h[0] = u;
+    h[1] = v;
+    if (lane == 31) t.seg_total[s] = incl;
+  }
+}
+
+// --- map: four planes, lanes on neighbouring bins --------------------------
+template <int VEC>
+__device__ __forceinline__ void map_phase(const Tables& t, const float* pairs,
+                                          int n_peaks, int B, int NS,
+                                          float tf_r, float ltf_r,
+                                          float* out0, float* grad_row,
+                                          int tid, int lane, int warp) {
+  const int M = (B + 1) / 2;
+  RowPeaks p;
+  p.prev_o = pairs;
+  p.range_scale = pairs + M;
+  p.out_offset = pairs + 2 * M;
+  p.out_scale = pairs + 3 * M;
+  p.n = n_peaks;
+  const int top = max(n_peaks - 1, 0);
+  p.first_in = n_peaks > 0 ? t.peak_in[0] : 0.f;
+  p.first_out = n_peaks > 0 ? t.peak_out[0] : __int_as_float(0x7f800000);
+  p.last_in = n_peaks > 0 ? t.peak_in[top] : 0.f;
+  p.last_out = n_peaks > 0 ? t.peak_out[top] : 0.f;
+  p.top_start = max((int)p.last_out, 0);   // truncation, as .to(int32)
+  float* out1 = out0 + B;
+  float* out2 = out1 + B;
+  int* H = t.H;
+  const int nq = (B + VEC - 1) / VEC;
+  for (int q0 = 0; q0 < nq; q0 += PEAKS_THREADS) {
+    // a warp's bins lie in one segment (32 * VEC divides 256)
+    const int s = ((q0 + (warp << 5)) * VEC) >> 8;
+    if (s >= NS) break;                     // the same in every lane
+    int unused;
+    const int kbase = segment_base(t.seg_total, NS, s, lane, &unused);
+    const int q = q0 + tid;
+    if (q >= nq) continue;
+    if (VEC == 4) {
+      const int4 k4 = reinterpret_cast<const int4*>(H)[q];
+      reinterpret_cast<int4*>(H)[q] = make_int4(0, 0, 0, 0);
+      float4 ib, g;
+      const int b = q << 2;
+      map_bin(p, b, k4.x + kbase, &ib.x, &g.x);
+      map_bin(p, b + 1, k4.y + kbase, &ib.y, &g.y);
+      map_bin(p, b + 2, k4.z + kbase, &ib.z, &g.z);
+      map_bin(p, b + 3, k4.w + kbase, &ib.w, &g.w);
+      reinterpret_cast<float4*>(out0)[q] = ib;
+      reinterpret_cast<float4*>(out1)[q] =
+          make_float4(ib.x - tf_r, ib.y - tf_r, ib.z - tf_r, ib.w - tf_r);
+      reinterpret_cast<float4*>(out2)[q] = make_float4(
+          ib.x - ltf_r, ib.y - ltf_r, ib.z - ltf_r, ib.w - ltf_r);
+      reinterpret_cast<float4*>(grad_row)[q] = g;
+    } else {
+      float ib, g;
+      const int kq = H[q];
+      H[q] = 0;
+      map_bin(p, q, kq + kbase, &ib, &g);
+      out0[q] = ib;
+      out1[q] = ib - tf_r;
+      out2[q] = ib - ltf_r;
+      grad_row[q] = g;
+    }
+  }
+}
+
+// the one-launch G: the built-in map, its constants ctl[row % nC]
 template <int VEC, bool TIMED>
 __global__ void __launch_bounds__(PEAKS_THREADS, 2)
 peaks_map_kernel(const float* __restrict__ energy,
@@ -211,17 +445,9 @@ peaks_map_kernel(const float* __restrict__ energy,
                  const float* __restrict__ ctl, int nC, long long* stamps) {
   extern __shared__ __align__(16) float smem[];
   const Layout L(B);
+  const Tables t(smem, L);
   const int NS = L.NS, W = L.W;
-  int* H = reinterpret_cast<int*>(smem + 4 * L.Bp);   // histogram, then k
-  float* peak_in = reinterpret_cast<float*>(H + L.HW);
-  float* peak_out = peak_in + L.PR;
-  unsigned* above = reinterpret_cast<unsigned*>(peak_out + L.PR);
-  int* seg_starts = reinterpret_cast<int*>(above + L.AW);
-  int* seg_total = seg_starts + ((NS + 3) & ~3);
-
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int NW = PEAKS_THREADS >> 5;
-  const int nseg = B / 2 + 2;
   unsigned long long gt0 = 0;
   long long clk = 0, cycles[PEAKS_PHASES] = {};
   if (TIMED && tid == 0) {
@@ -229,7 +455,7 @@ peaks_map_kernel(const float* __restrict__ energy,
     clk = clock64();
   }
 
-  for (int i = tid; i < B; i += PEAKS_THREADS) H[i] = 0;
+  for (int i = tid; i < B; i += PEAKS_THREADS) t.H[i] = 0;
   int row = blockIdx.x;
   if (row < R)
     load_row<VEC>(smem, smem + L.Bp, energy + (long long)row * B,
@@ -237,12 +463,6 @@ peaks_map_kernel(const float* __restrict__ energy,
   for (int it = 0; row < R; ++it, row += gridDim.x) {
     float* E = smem + (it & 1) * 2 * L.Bp;
     float* S = E + L.Bp;
-    // after the runs: the pairs' tables, four of (B + 1) / 2
-    const int M = (B + 1) / 2;
-    float* pair_prev_o = E;
-    float* pair_scale = E + M;
-    float* pair_offset = E + 2 * M;
-    float* pair_out_scale = E + 3 * M;
     const int blk = row % nB;
     const float tf_r = tf[blk], ltf_r = ltf[blk];
     const float* ctl_r = ctl + 3 * (row % nC);
@@ -259,179 +479,184 @@ peaks_map_kernel(const float* __restrict__ energy,
                     smoothed + (long long)next * B, B, tid);
     }
 
-    // --- flags: the above-words and each segment's run starts ------------
     // (the map zeroed the histogram's bins below B as it read them)
-    for (int i = B + tid; i < L.HW; i += PEAKS_THREADS) H[i] = 0;
-    if (tid == 0) above[W] = 0u;          // a run ends before word W
-    for (int s = warp; s < NS; s += NW) {
-      const int b0 = s << 8;
-      bool hi[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int b = b0 + (j << 5) + lane;
-        hi[j] = b < B && E[b] > S[b];
-      }
-      unsigned carry = b0 > 0 && E[b0 - 1] > S[b0 - 1];
-      int count = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int w = (s << 3) + j;
-        if (w >= W) break;                  // the same in every lane
-        const unsigned a = __ballot_sync(FULL, hi[j]);
-        if (lane == 0) above[w] = a;
-        count += __popc(a & ~((a << 1) | carry));
-        carry = a >> 31;
-      }
-      if (lane == 0) seg_starts[s] = count;
-    }
+    for (int i = B + tid; i < L.HW; i += PEAKS_THREADS) t.H[i] = 0;
+    flags_phase(E, S, t, B, NS, W, tid, lane, warp);
     __syncthreads();
     STAMP(2)
 
-    // --- runs: ids, sums, peaks and the histogram -------------------------
-    // thread t owns the 8 bins of chunk c = c0 + t; chunk c lies in segment
-    // c / 32, which is one warp's
-    int n_peaks;
-    segment_base(seg_starts, NS, 0, lane, &n_peaks);
-    for (int c0 = 0; c0 < NS * 32; c0 += PEAKS_THREADS) {
-      const int s = (c0 >> 5) + warp;
-      if (s >= NS) break;                  // the same in every lane
-      int unused;
-      const int base = segment_base(seg_starts, NS, s, lane, &unused);
-      const int c = c0 + tid, b0 = c << 3;
-      unsigned st = 0;
-      if (b0 < B) {
-        const unsigned a8 = (above[c >> 2] >> ((c & 3) << 3)) & 0xffu;
-        const unsigned prev =
-            b0 > 0 ? (above[(b0 - 1) >> 5] >> ((b0 - 1) & 31)) & 1u : 0u;
-        st = a8 & ~((a8 << 1) | prev) & 0xffu;
-      }
-      const int cnt = __popc(st);
-      int id = base + warp_inclusive_scan(cnt, lane) - cnt;
-      while (st) {
-        const int a = b0 + __ffs(st) - 1;
-        st &= st - 1;
-        int w = a >> 5;                     // the run's last bin z: the
-        unsigned m = ~above[w] & (FULL << (a & 31));   // first 0 after a
-        while (!m) m = ~above[++w];
-        const int z = (w << 5) + __ffs(m) - 2;
-        float band_sum = 0.f, energy_sum = 0.f;
-#pragma unroll 4
-        for (int b = a; b <= z; ++b) {
-          const float x = E[b];
-          band_sum = band_sum + (float)b * x;
-          energy_sum = energy_sum + x;
-        }
-        const float avg = band_sum / (energy_sum == 0.f ? 1.f : energy_sum);
-        const float freq = (avg + 0.5f) * inv_N;   // N a power of two
-        const float mapped = freq > limit ? freq + above_off : freq * mult;
-        const float out = mapped * N - 0.5f;
-        peak_in[id] = avg;
-        peak_out[id] = out;
-        atomicAdd(&H[(int)fminf(fmaxf(ceilf(out), 0.f), (float)B)], 1);
-        ++id;
-      }
-    }
+    const int n_peaks = runs_phase(
+        E, t, B, NS, tid, lane, warp, [&](int id, float avg) {
+          const float freq = (avg + 0.5f) * inv_N;   // N a power of two
+          const float mapped =
+              freq > limit ? freq + above_off : freq * mult;
+          count_peak(t, id, avg, mapped, N, B);
+        });
     __syncthreads();
     STAMP(3)
 
-    // --- prefix: each segment's inclusive prefix and its total; the map's
-    // constants of each pair of neighbouring peaks --------------------------
-    // pair k (k = 1..n, the bins with k peaks at or below them) between
-    // peaks k - 1 and k (past the last: input 0, output +inf), in the row's
-    // energy and smoothed buffer, which the runs are done reading
-    for (int k = tid + 1; k <= n_peaks; k += PEAKS_THREADS) {
-      const float inf = __int_as_float(0x7f800000);
-      const int pi = min(max(k - 1, 0), nseg - 1);
-      const int ni = min(max(k, 0), nseg - 1);
-      const float prev_o = pi < n_peaks ? peak_out[pi] : inf;
-      const float prev_in = pi < n_peaks ? peak_in[pi] : 0.f;
-      const float next_o = ni < n_peaks ? peak_out[ni] : inf;
-      const float next_in = ni < n_peaks ? peak_in[ni] : 0.f;
-      pair_prev_o[k - 1] = prev_o;
-      pair_scale[k - 1] = 1.f / (next_o - prev_o);         // range_scale
-      pair_offset[k - 1] = prev_in - prev_o;
-      pair_out_scale[k - 1] = ((next_in - next_o) - prev_in) + prev_o;
-    }
-    for (int s = warp; s < NS; s += NW) {
-      int4* h = reinterpret_cast<int4*>(H + (s << 8) + (lane << 3));
-      int4 u = h[0], v = h[1];
-      u.y += u.x; u.z += u.y; u.w += u.z;
-      v.x += u.w; v.y += v.x; v.z += v.y; v.w += v.z;
-      const int incl = warp_inclusive_scan(v.w, lane);
-      const int ex = incl - v.w;
-      u.x += ex; u.y += ex; u.z += ex; u.w += ex;
-      v.x += ex; v.y += ex; v.z += ex; v.w += ex;
-      h[0] = u;
-      h[1] = v;
-      if (lane == 31) seg_total[s] = incl;
-    }
+    // the pairs' tables go where the row's energy and smoothed curve were
+    prefix_phase(t, E, n_peaks, B, NS, tid, lane, warp);
     __syncthreads();
     STAMP(4)
 
-    // --- map: four planes, lanes on neighbouring bins ----------------------
-    RowPeaks p;
-    p.prev_o = pair_prev_o;
-    p.range_scale = pair_scale;
-    p.out_offset = pair_offset;
-    p.out_scale = pair_out_scale;
-    p.n = n_peaks;
-    const int top = max(n_peaks - 1, 0);
-    p.first_in = n_peaks > 0 ? peak_in[0] : 0.f;
-    p.first_out = n_peaks > 0 ? peak_out[0] : __int_as_float(0x7f800000);
-    p.last_in = n_peaks > 0 ? peak_in[top] : 0.f;
-    p.last_out = n_peaks > 0 ? peak_out[top] : 0.f;
-    p.top_start = max((int)p.last_out, 0);   // truncation, as .to(int32)
-    float* out0 = pos + (long long)row * 3 * B;
-    float* out1 = out0 + B;
-    float* out2 = out1 + B;
-    float* grad_row = freq_grad + (long long)row * B;
-    const int nq = (B + VEC - 1) / VEC;
-    for (int q0 = 0; q0 < nq; q0 += PEAKS_THREADS) {
-      // a warp's bins lie in one segment (32 * VEC divides 256)
-      const int s = ((q0 + (warp << 5)) * VEC) >> 8;
-      if (s >= NS) break;                   // the same in every lane
-      int unused;
-      const int kbase = segment_base(seg_total, NS, s, lane, &unused);
-      const int q = q0 + tid;
-      if (q >= nq) continue;
-      if (VEC == 4) {
-        const int4 k4 = reinterpret_cast<const int4*>(H)[q];
-        reinterpret_cast<int4*>(H)[q] = make_int4(0, 0, 0, 0);
-        float4 ib, g;
-        const int b = q << 2;
-        map_bin(p, b, k4.x + kbase, &ib.x, &g.x);
-        map_bin(p, b + 1, k4.y + kbase, &ib.y, &g.y);
-        map_bin(p, b + 2, k4.z + kbase, &ib.z, &g.z);
-        map_bin(p, b + 3, k4.w + kbase, &ib.w, &g.w);
-        reinterpret_cast<float4*>(out0)[q] = ib;
-        reinterpret_cast<float4*>(out1)[q] =
-            make_float4(ib.x - tf_r, ib.y - tf_r, ib.z - tf_r, ib.w - tf_r);
-        reinterpret_cast<float4*>(out2)[q] = make_float4(
-            ib.x - ltf_r, ib.y - ltf_r, ib.z - ltf_r, ib.w - ltf_r);
-        reinterpret_cast<float4*>(grad_row)[q] = g;
-      } else {
-        float ib, g;
-        const int kq = H[q];
-        H[q] = 0;
-        map_bin(p, q, kq + kbase, &ib, &g);
-        out0[q] = ib;
-        out1[q] = ib - tf_r;
-        out2[q] = ib - ltf_r;
-        grad_row[q] = g;
-      }
-    }
+    map_phase<VEC>(t, E, n_peaks, B, NS, tf_r, ltf_r,
+                   pos + (long long)row * 3 * B,
+                   freq_grad + (long long)row * B, tid, lane, warp);
     if (TIMED) __syncthreads();
     STAMP(5)
   }
+  if (TIMED && tid == 0) end_stamps(stamps, cycles, PEAKS_PHASES, gt0);
+}
+
+// the runs entry: peak_in and avg_freq [R, nseg] (slots from n_peaks on 0)
+// and n_peaks [R]
+template <int VEC, bool TIMED>
+__global__ void __launch_bounds__(PEAKS_THREADS, 2)
+peaks_runs_kernel(const float* __restrict__ energy,
+                  const float* __restrict__ smoothed,
+                  float* __restrict__ peak_in_out,
+                  float* __restrict__ avg_freq_out,
+                  int* __restrict__ n_peaks_out, int R, int B, float inv_N,
+                  long long* stamps) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout L(B);
+  const Tables t(smem, L);
+  const int NS = L.NS, W = L.W, nseg = B / 2 + 2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  unsigned long long gt0 = 0;
+  long long clk = 0, cycles[RUNS_PHASES] = {};
   if (TIMED && tid == 0) {
-    unsigned smid;
-    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
-    long long* st = stamps + (long long)blockIdx.x * (PEAKS_PHASES + 3);
-    for (int i = 0; i < PEAKS_PHASES; ++i) st[i] = cycles[i];
-    st[PEAKS_PHASES] = (long long)gt0;
-    st[PEAKS_PHASES + 1] = (long long)global_ns();
-    st[PEAKS_PHASES + 2] = smid;
+    gt0 = global_ns();
+    clk = clock64();
   }
+
+  int row = blockIdx.x;
+  if (row < R)
+    load_row<VEC>(smem, smem + L.Bp, energy + (long long)row * B,
+                  smoothed + (long long)row * B, B, tid);
+  for (int it = 0; row < R; ++it, row += gridDim.x) {
+    float* E = smem + (it & 1) * 2 * L.Bp;
+    float* S = E + L.Bp;
+    cp_async_wait_all();
+    __syncthreads();
+    STAMP(1)
+    const int next = row + gridDim.x;
+    if (next < R) {
+      float* nE = smem + ((it + 1) & 1) * 2 * L.Bp;
+      load_row<VEC>(nE, nE + L.Bp, energy + (long long)next * B,
+                    smoothed + (long long)next * B, B, tid);
+    }
+
+    flags_phase(E, S, t, B, NS, W, tid, lane, warp);
+    __syncthreads();
+    STAMP(2)
+
+    // the frequency goes where the one-launch G keeps the output band
+    const int n_peaks = runs_phase(
+        E, t, B, NS, tid, lane, warp, [&](int id, float avg) {
+          t.peak_in[id] = avg;
+          t.peak_out[id] = (avg + 0.5f) * inv_N;     // N a power of two
+        });
+    __syncthreads();
+    STAMP(3)
+
+    // --- write: the row's slots, coalesced ---------------------------------
+    float* pin = peak_in_out + (long long)row * nseg;
+    float* fq = avg_freq_out + (long long)row * nseg;
+    for (int i = tid; i < nseg; i += PEAKS_THREADS) {
+      pin[i] = i < n_peaks ? t.peak_in[i] : 0.f;
+      fq[i] = i < n_peaks ? t.peak_out[i] : 0.f;
+    }
+    if (tid == 0) n_peaks_out[row] = n_peaks;
+    if (TIMED) __syncthreads();
+    STAMP(4)
+  }
+  if (TIMED && tid == 0) end_stamps(stamps, cycles, RUNS_PHASES, gt0);
+}
+
+// the out entry: the output map of n_peaks[r] peaks of peak_in and mapped
+// [R, nseg], and the position sets
+template <int VEC, bool TIMED>
+__global__ void __launch_bounds__(PEAKS_THREADS, 2)
+peaks_out_kernel(const float* __restrict__ peak_in_in,
+                 const float* __restrict__ mapped_in,
+                 const int* __restrict__ n_peaks_in,
+                 const float* __restrict__ tf, const float* __restrict__ ltf,
+                 float* __restrict__ pos, float* __restrict__ freq_grad,
+                 int R, int B, int nB, float N, long long* stamps) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout L(B);
+  const Tables t(smem, L);
+  const int NS = L.NS, nseg = B / 2 + 2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  unsigned long long gt0 = 0;
+  long long clk = 0, cycles[OUT_PHASES] = {};
+  if (TIMED && tid == 0) {
+    gt0 = global_ns();
+    clk = clock64();
+  }
+
+  for (int i = tid; i < L.HW; i += PEAKS_THREADS) t.H[i] = 0;
+  for (int row = blockIdx.x; row < R; row += gridDim.x) {
+    const int blk = row % nB;
+    const float tf_r = tf[blk], ltf_r = ltf[blk];
+    // a row holds at most (B + 1) / 2 peaks, the size of the tables
+    const int n_peaks = min(max(n_peaks_in[row], 0), (B + 1) / 2);
+    // every thread is past the previous row: the tables are free, and the
+    // histogram is zero (the map zeroed its bins below B, the tail below)
+    __syncthreads();
+
+    // --- peaks: the valid slots, their output bands and the histogram ----
+    const float* pin = peak_in_in + (long long)row * nseg;
+    const float* mp = mapped_in + (long long)row * nseg;
+    for (int i = tid; i < n_peaks; i += PEAKS_THREADS)
+      count_peak(t, i, pin[i], mp[i], N, B);
+    __syncthreads();
+    STAMP(1)
+
+    prefix_phase(t, smem, n_peaks, B, NS, tid, lane, warp);
+    __syncthreads();
+    STAMP(2)
+
+    map_phase<VEC>(t, smem, n_peaks, B, NS, tf_r, ltf_r,
+                   pos + (long long)row * 3 * B,
+                   freq_grad + (long long)row * B, tid, lane, warp);
+    for (int i = B + tid; i < L.HW; i += PEAKS_THREADS) t.H[i] = 0;
+    if (TIMED) __syncthreads();
+    STAMP(3)
+  }
+  if (TIMED && tid == 0) end_stamps(stamps, cycles, OUT_PHASES, gt0);
+}
+
+// the grid of a persistent kernel: as many CTAs as are resident at once,
+// found once per kernel, size and card
+struct Grid {
+  int bytes = -1, dev = -1, per_sm = 0, sms = 0;
+};
+
+template <class Kernel>
+static int resident_grid(Kernel kernel, Grid& g, int bytes, int R,
+                         int* grid) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (bytes != g.bytes || dev != g.dev) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&g.sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &g.per_sm, kernel, PEAKS_THREADS, bytes);
+    if (err != cudaSuccess) return (int)err;
+    if (g.per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    g.bytes = bytes;
+    g.dev = dev;
+  }
+  *grid = R < g.per_sm * g.sms ? R : g.per_sm * g.sms;
+  return 0;
 }
 
 template <int VEC, bool TIMED>
@@ -439,30 +664,13 @@ static int launch(const float* energy, const float* smoothed, const float* tf,
                   const float* ltf, float* pos, float* freq_grad, int R, int B,
                   int nB, int N, const float* ctl, int nC, long long* stamps,
                   void* stream) {
-  // the grid: as many CTAs as are resident at once, found once per size
-  // and card
-  static int grid_bytes = -1, grid_dev = -1, per_sm = 0, sms = 0;
+  static Grid g;
   auto kernel = peaks_map_kernel<VEC, TIMED>;
   const int bytes = 4 * Layout(B).words();
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (bytes != grid_bytes || dev != grid_dev) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel, PEAKS_THREADS, bytes);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    grid_bytes = bytes;
-    grid_dev = dev;
-  }
-  const int grid = R < per_sm * sms ? R : per_sm * sms;
-  peaks_map_kernel<VEC, TIMED>
-      <<<grid, PEAKS_THREADS, bytes, (cudaStream_t)stream>>>(
+  int grid = 0;
+  const int err = resident_grid(kernel, g, bytes, R, &grid);
+  if (err) return err;
+  kernel<<<grid, PEAKS_THREADS, bytes, (cudaStream_t)stream>>>(
       energy, smoothed, tf, ltf, pos, freq_grad, R, B, nB, (float)N,
       1.f / (float)N, ctl, nC, stamps);
   return (int)cudaGetLastError();
@@ -488,6 +696,66 @@ static int dispatch(const float* energy, const float* smoothed,
       stream);
 }
 
+template <int VEC, bool TIMED>
+static int launch_runs(const float* energy, const float* smoothed,
+                       float* peak_in, float* avg_freq, int* n_peaks, int R,
+                       int B, int N, long long* stamps, void* stream) {
+  static Grid g;
+  auto kernel = peaks_runs_kernel<VEC, TIMED>;
+  const int bytes = 4 * Layout(B).words();
+  int grid = 0;
+  const int err = resident_grid(kernel, g, bytes, R, &grid);
+  if (err) return err;
+  kernel<<<grid, PEAKS_THREADS, bytes, (cudaStream_t)stream>>>(
+      energy, smoothed, peak_in, avg_freq, n_peaks, R, B, 1.f / (float)N,
+      stamps);
+  return (int)cudaGetLastError();
+}
+
+template <bool TIMED>
+static int dispatch_runs(const float* energy, const float* smoothed,
+                         float* peak_in, float* avg_freq, int* n_peaks, int R,
+                         int B, int N, long long* stamps, void* stream) {
+  if (R <= 0 || B <= 0) return 0;
+  const bool vec = B % 4 == 0 &&
+                   ((reinterpret_cast<size_t>(energy) |
+                     reinterpret_cast<size_t>(smoothed)) & 15) == 0;
+  return (vec ? launch_runs<4, TIMED> : launch_runs<1, TIMED>)(
+      energy, smoothed, peak_in, avg_freq, n_peaks, R, B, N, stamps, stream);
+}
+
+template <int VEC, bool TIMED>
+static int launch_out(const float* peak_in, const float* mapped,
+                      const int* n_peaks, const float* tf, const float* ltf,
+                      float* pos, float* freq_grad, int R, int B, int nB,
+                      int N, long long* stamps, void* stream) {
+  static Grid g;
+  auto kernel = peaks_out_kernel<VEC, TIMED>;
+  const int bytes = 4 * Layout(B).words();
+  int grid = 0;
+  const int err = resident_grid(kernel, g, bytes, R, &grid);
+  if (err) return err;
+  kernel<<<grid, PEAKS_THREADS, bytes, (cudaStream_t)stream>>>(
+      peak_in, mapped, n_peaks, tf, ltf, pos, freq_grad, R, B, nB, (float)N,
+      stamps);
+  return (int)cudaGetLastError();
+}
+
+template <bool TIMED>
+static int dispatch_out(const float* peak_in, const float* mapped,
+                        const int* n_peaks, const float* tf, const float* ltf,
+                        float* pos, float* freq_grad, int R, int B, int nB,
+                        int N, long long* stamps, void* stream) {
+  if (R <= 0 || B <= 0) return 0;
+  if (nB < 1 || R % nB) return (int)cudaErrorInvalidValue;
+  const bool vec = B % 4 == 0 &&
+                   ((reinterpret_cast<size_t>(pos) |
+                     reinterpret_cast<size_t>(freq_grad)) & 15) == 0;
+  return (vec ? launch_out<4, TIMED> : launch_out<1, TIMED>)(
+      peak_in, mapped, n_peaks, tf, ltf, pos, freq_grad, R, B, nB, N, stamps,
+      stream);
+}
+
 // energy, smoothed [R, B] f32; tf, ltf [nB] f32 (rows block-major per
 // clip, R a multiple of nB); pos [R, 3, B] and freq_grad [R, B] f32 out; N
 // the FFT size; ctl [nC, 3] f32 (nC 1 or nB) the frequency map's float32
@@ -510,4 +778,44 @@ extern "C" int sst_peaks_map_timed(const float* energy, const float* smoothed,
                                    long long* stamps, void* stream) {
   return dispatch<true>(energy, smoothed, tf, ltf, pos, freq_grad, R, B, nB,
                         N, ctl, nC, stamps, stream);
+}
+
+// the runs entry: energy, smoothed [R, B] f32 -> peak_in, avg_freq [R, B /
+// 2 + 2] f32 and n_peaks [R] int32; N the FFT size (a power of two)
+extern "C" int sst_peaks_runs(const float* energy, const float* smoothed,
+                              float* peak_in, float* avg_freq, int* n_peaks,
+                              int R, int B, int N, void* stream) {
+  return dispatch_runs<false>(energy, smoothed, peak_in, avg_freq, n_peaks, R,
+                              B, N, nullptr, stream);
+}
+
+// the same with the stamps, [min(R, CTAs resident), RUNS_PHASES + 3]
+extern "C" int sst_peaks_runs_timed(const float* energy,
+                                    const float* smoothed, float* peak_in,
+                                    float* avg_freq, int* n_peaks, int R,
+                                    int B, int N, long long* stamps,
+                                    void* stream) {
+  return dispatch_runs<true>(energy, smoothed, peak_in, avg_freq, n_peaks, R,
+                             B, N, stamps, stream);
+}
+
+// the out entry: peak_in, mapped [R, B / 2 + 2] f32 and n_peaks [R] int32
+// (the runs entry's outputs, avg_freq through the frequency map), tf, ltf
+// [nB] f32 -> pos [R, 3, B] and freq_grad [R, B] f32, as sst_peaks_map
+extern "C" int sst_peaks_out(const float* peak_in, const float* mapped,
+                             const int* n_peaks, const float* tf,
+                             const float* ltf, float* pos, float* freq_grad,
+                             int R, int B, int nB, int N, void* stream) {
+  return dispatch_out<false>(peak_in, mapped, n_peaks, tf, ltf, pos,
+                             freq_grad, R, B, nB, N, nullptr, stream);
+}
+
+// the same with the stamps, [min(R, CTAs resident), OUT_PHASES + 3]
+extern "C" int sst_peaks_out_timed(const float* peak_in, const float* mapped,
+                                   const int* n_peaks, const float* tf,
+                                   const float* ltf, float* pos,
+                                   float* freq_grad, int R, int B, int nB,
+                                   int N, long long* stamps, void* stream) {
+  return dispatch_out<true>(peak_in, mapped, n_peaks, tf, ltf, pos,
+                            freq_grad, R, B, nB, N, stamps, stream);
 }

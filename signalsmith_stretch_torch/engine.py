@@ -21,6 +21,8 @@ from . import schedule as sched_mod
 from . import spectral, stft, wavefront
 from .config import NOISE_FLOOR, StretchConfig
 
+plans_built = 0       # build_exact_plan calls (utils/profiling's guard)
+
 
 @dataclasses.dataclass(frozen=True)
 class ExactPlan:
@@ -109,6 +111,8 @@ def build_silence_plan(sch: sched_mod.ExactSchedule, basis: stft.StftBasis,
 
 def build_exact_plan(cfg: StretchConfig, in_samples: int,
                      out_samples: int) -> ExactPlan:
+    global plans_built
+    plans_built += 1
     sch = sched_mod.build_exact_schedule(cfg, in_samples, out_samples)
     basis = stft.StftBasis.for_config(cfg)
     consts = spectral.SpectralConsts.for_config(cfg)

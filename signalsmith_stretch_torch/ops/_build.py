@@ -39,6 +39,12 @@ ENTRY = {
     "peaks": ("peaks", "sst_peaks_map", [_P] * 6 + [_I] * 4 + [_P, _I, _P]),
     "peaks_timed": ("peaks", "sst_peaks_map_timed",
                     [_P] * 6 + [_I] * 4 + [_P, _I, _P, _P]),
+    "peaks_runs": ("peaks", "sst_peaks_runs", [_P] * 5 + [_I] * 3 + [_P]),
+    "peaks_runs_timed": ("peaks", "sst_peaks_runs_timed",
+                         [_P] * 5 + [_I] * 3 + [_P, _P]),
+    "peaks_out": ("peaks", "sst_peaks_out", [_P] * 7 + [_I] * 4 + [_P]),
+    "peaks_out_timed": ("peaks", "sst_peaks_out_timed",
+                        [_P] * 7 + [_I] * 4 + [_P, _P]),
 }
 SOURCES = tuple(dict.fromkeys(source for source, _, _ in ENTRY.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,6 +52,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v")
 
 _entries: dict = {}
+builds = 0            # sources compiled by nvcc (utils/profiling's guard)
 
 
 def _nvcc() -> str:
@@ -72,6 +79,7 @@ def build(names=SOURCES) -> dict:
     """Compile every named kernel source that is not built yet, one nvcc
     process per source, all started together.  Returns {name: (seconds,
     ptxas report)} for the sources compiled by this call."""
+    global builds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
     for name in names:
@@ -90,6 +98,7 @@ def build(names=SOURCES) -> dict:
             failed.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
             continue
         os.replace(tmp, so)
+        builds += 1
         report[name] = (time.perf_counter() - t0, log)
     if failed:
         raise RuntimeError("\n".join(failed))

@@ -12,6 +12,12 @@ tf and less its long step's ltf (the three position sets of kernel A's one
 call), and the gradient of the output map.  On a CPU tensor it runs the
 plain version (`peaks_positions_plain`); on a CUDA tensor it launches the
 kernel or raises.
+
+A custom frequency map is a Python callable, which cannot run inside the
+kernel: `peaks_positions_custom` splits G around it into two entries of
+the same source, `peak_runs` (the runs, each peak's average band and
+frequency) and `output_positions` (the output map and the position sets
+from the mapped frequencies), and calls the map on the card between them.
 """
 from __future__ import annotations
 
@@ -24,8 +30,13 @@ from . import _build
 from .. import spectral
 
 launches = 0          # kernel launches of peaks_positions
-# the kernel's phases, as its timed entry splits them (csrc/peaks.cu STAMP)
+runs_launches = 0     # of peak_runs (the runs entry)
+out_launches = 0      # of output_positions (the out entry)
+# the entries' phases, as their timed entries split them (csrc/peaks.cu
+# STAMP)
 PHASES = ("wait", "flags", "runs", "prefix", "map")
+RUNS_PHASES = ("wait", "flags", "runs", "write")
+OUT_PHASES = ("peaks", "prefix", "map")
 
 f32 = np.float32
 
@@ -38,39 +49,54 @@ def peaks_positions_plain(energy: torch.Tensor, smoothed: torch.Tensor,
     map and the two subtractions, each one float32 operation."""
     input_bin, freq_grad = spectral._peaks_and_map(energy, smoothed, controls,
                                                    consts)
-    clips = energy.shape[0] // tf.shape[0]
+    return _position_sets(input_bin, tf, ltf), freq_grad
+
+
+def _position_sets(input_bin, tf, ltf):
+    """[R, 3, B]: input_bin, less tf and less ltf of each row's block."""
+    clips = input_bin.shape[0] // tf.shape[0]
     t1 = tf.repeat(clips)[:, None]          # rows are block-major per clip
     t2 = ltf.repeat(clips)[:, None]
-    return torch.stack([input_bin, input_bin - t1, input_bin - t2], 1), \
-        freq_grad
+    return torch.stack([input_bin, input_bin - t1, input_bin - t2], 1)
 
 
-def _check(energy, smoothed, tf, ltf, controls, consts):
-    _build.require_cuda(energy, smoothed, tf, ltf)
-    if any(t.dtype != torch.float32 for t in (energy, smoothed, tf, ltf)):
-        raise TypeError("peaks_positions: float32 tensors expected")
+def _check_rows(what, energy, smoothed, consts):
+    _build.require_cuda(energy, smoothed)
+    if any(t.dtype != torch.float32 for t in (energy, smoothed)):
+        raise TypeError(f"{what}: float32 tensors expected")
     if energy.dim() != 2 or smoothed.shape != energy.shape:
-        raise ValueError(f"peaks_positions: energy and smoothed [R, B] "
-                         f"expected, got {tuple(energy.shape)} and "
+        raise ValueError(f"{what}: energy and smoothed [R, B] expected, got "
+                         f"{tuple(energy.shape)} and "
                          f"{tuple(smoothed.shape)}")
-    if (tf.dim() != 1 or ltf.shape != tf.shape or tf.shape[0] == 0
-            or energy.shape[0] % tf.shape[0]):
-        raise ValueError(f"peaks_positions: tf and ltf [nB] with nB dividing "
-                         f"{energy.shape[0]} rows expected, got "
-                         f"{tuple(tf.shape)} and {tuple(ltf.shape)}")
-    if controls.automated and len(controls.freq_multiplier) != tf.shape[0]:
-        raise ValueError(f"peaks_positions: per-block controls of "
-                         f"{len(controls.freq_multiplier)} blocks for "
-                         f"{tf.shape[0]} blocks")
     N = consts.fft_samples
     if N & (N - 1):
         # the kernel and the plain version on the card multiply by 1/N,
         # which equals the CPU's division only for a power of two
-        raise ValueError(f"peaks_positions: FFT size {N} is not a power of "
-                         f"two")
+        raise ValueError(f"{what}: FFT size {N} is not a power of two")
     if 3 * energy.numel() >= 2 ** 31:
-        raise ValueError(f"peaks_positions: {tuple(energy.shape)} exceeds "
-                         f"32-bit indexing")
+        raise ValueError(f"{what}: {tuple(energy.shape)} exceeds 32-bit "
+                         f"indexing")
+
+
+def _check_shifts(what, R, tf, ltf):
+    _build.require_cuda(tf, ltf)
+    if any(t.dtype != torch.float32 for t in (tf, ltf)):
+        raise TypeError(f"{what}: float32 tensors expected")
+    if (tf.dim() != 1 or ltf.shape != tf.shape or tf.shape[0] == 0
+            or R % tf.shape[0]):
+        raise ValueError(f"{what}: tf and ltf [nB] with nB dividing {R} rows "
+                         f"expected, got {tuple(tf.shape)} and "
+                         f"{tuple(ltf.shape)}")
+
+
+def _check(energy, smoothed, tf, ltf, controls, consts):
+    _check_rows("peaks_positions", energy, smoothed, consts)
+    _build.require_cuda(energy, tf)
+    _check_shifts("peaks_positions", energy.shape[0], tf, ltf)
+    if controls.automated and len(controls.freq_multiplier) != tf.shape[0]:
+        raise ValueError(f"peaks_positions: per-block controls of "
+                         f"{len(controls.freq_multiplier)} blocks for "
+                         f"{tf.shape[0]} blocks")
 
 
 def map_constants(controls: spectral.Controls) -> np.ndarray:
@@ -139,3 +165,154 @@ def phase_stamps(energy: torch.Tensor, smoothed: torch.Tensor,
     _launch("peaks_timed", energy, smoothed, tf, ltf, controls, consts,
             stamps.data_ptr())
     return stamps[stamps[:, len(PHASES) + 1] > 0]
+
+
+# ---------------------------------------------------------------------------
+# G split around a custom frequency map: the runs entry and the out entry
+# ---------------------------------------------------------------------------
+def peak_runs_plain(energy: torch.Tensor, smoothed: torch.Tensor,
+                    consts: spectral.SpectralConsts):
+    """Plain version of peak_runs: spectral._peak_runs."""
+    return spectral._peak_runs(energy, smoothed, consts)
+
+
+def _launch_runs(entry, energy, smoothed, consts, *extra):
+    R, B = energy.shape
+    nseg = B // 2 + 2
+    peak_in = torch.empty((R, nseg), dtype=torch.float32,
+                          device=energy.device)
+    avg_freq = torch.empty_like(peak_in)
+    n_peaks = torch.empty(R, dtype=torch.int32, device=energy.device)
+    rc = _build.entry(entry)(
+        energy.data_ptr(), smoothed.data_ptr(), peak_in.data_ptr(),
+        avg_freq.data_ptr(), n_peaks.data_ptr(), R, B, consts.fft_samples,
+        *extra, torch.cuda.current_stream(energy.device).cuda_stream)
+    _build.check(rc, f"peaks kernel entry {entry!r}")
+    return peak_in, avg_freq, n_peaks
+
+
+def peak_runs(energy: torch.Tensor, smoothed: torch.Tensor,
+              consts: spectral.SpectralConsts):
+    """Kernel wrapper (G's runs entry): energy, smoothed [R, B] f32 ->
+    (peak_in, avg_freq) [R, B // 2 + 2] f32 and n_peaks [R] int32: slot i <
+    n_peaks[r] holds row r's peak i, its average band (each run summed
+    bin-ascending) and its frequency (avg + 0.5) / N; the later slots hold
+    0.  One launch; no map, no histogram."""
+    global runs_launches
+    if energy.device.type == "cpu":
+        return peak_runs_plain(energy, smoothed, consts)
+    _check_rows("peak_runs", energy, smoothed, consts)
+    out = _launch_runs("peaks_runs", energy, smoothed, consts)
+    runs_launches += 1
+    return out
+
+
+def output_positions_plain(peak_in: torch.Tensor, mapped: torch.Tensor,
+                           n_peaks: torch.Tensor, tf: torch.Tensor,
+                           ltf: torch.Tensor, B: int,
+                           consts: spectral.SpectralConsts):
+    """Plain version of output_positions: spectral._output_map and the two
+    subtractions."""
+    input_bin, freq_grad = spectral._output_map(peak_in, mapped, n_peaks, B,
+                                                consts)
+    return _position_sets(input_bin, tf, ltf), freq_grad
+
+
+def _check_out(peak_in, mapped, n_peaks, tf, ltf, B, consts):
+    what = "output_positions"
+    _build.require_cuda(peak_in, mapped, n_peaks, tf, ltf)
+    if peak_in.dtype != torch.float32 or mapped.dtype != torch.float32:
+        raise TypeError(f"{what}: float32 peak_in and mapped expected")
+    if n_peaks.dtype != torch.int32:
+        raise TypeError(f"{what}: int32 n_peaks expected")
+    R = peak_in.shape[0]
+    nseg = B // 2 + 2
+    if (peak_in.shape != (R, nseg) or mapped.shape != peak_in.shape
+            or n_peaks.shape != (R,)):
+        raise ValueError(f"{what}: peak_in and mapped [R, {nseg}] and "
+                         f"n_peaks [R] expected, got {tuple(peak_in.shape)}, "
+                         f"{tuple(mapped.shape)} and {tuple(n_peaks.shape)}")
+    _check_shifts(what, R, tf, ltf)
+    if consts.fft_samples & (consts.fft_samples - 1):
+        raise ValueError(f"{what}: FFT size {consts.fft_samples} is not a "
+                         f"power of two")
+    if 3 * R * B >= 2 ** 31:
+        raise ValueError(f"{what}: [{R}, 3, {B}] exceeds 32-bit indexing")
+
+
+def _launch_out(entry, peak_in, mapped, n_peaks, tf, ltf, B, consts, *extra):
+    R = peak_in.shape[0]
+    pos = torch.empty((R, 3, B), dtype=torch.float32, device=peak_in.device)
+    freq_grad = torch.empty((R, B), dtype=torch.float32,
+                            device=peak_in.device)
+    rc = _build.entry(entry)(
+        peak_in.data_ptr(), mapped.data_ptr(), n_peaks.data_ptr(),
+        tf.data_ptr(), ltf.data_ptr(), pos.data_ptr(), freq_grad.data_ptr(),
+        R, B, tf.shape[0], consts.fft_samples, *extra,
+        torch.cuda.current_stream(peak_in.device).cuda_stream)
+    _build.check(rc, f"peaks kernel entry {entry!r}")
+    return pos, freq_grad
+
+
+def output_positions(peak_in: torch.Tensor, mapped: torch.Tensor,
+                     n_peaks: torch.Tensor, tf: torch.Tensor,
+                     ltf: torch.Tensor, B: int,
+                     consts: spectral.SpectralConsts):
+    """Kernel wrapper (G's out entry): peak_in and mapped [R, B // 2 + 2]
+    f32 (peak_runs' peak_in and its avg_freq through the frequency map),
+    n_peaks [R] int32, tf and ltf [nB] f32 -> (pos [R, 3, B], freq_grad
+    [R, B]) f32, as peaks_positions.  Each peak's output band is mapped * N
+    - 0.5; only the slots below n_peaks[r] are read, so the later ones may
+    hold anything, NaN too.  One launch."""
+    global out_launches
+    if peak_in.device.type == "cpu":
+        return output_positions_plain(peak_in, mapped, n_peaks, tf, ltf, B,
+                                      consts)
+    _check_out(peak_in, mapped, n_peaks, tf, ltf, B, consts)
+    out = _launch_out("peaks_out", peak_in, mapped, n_peaks, tf, ltf, B,
+                      consts)
+    out_launches += 1
+    return out
+
+
+def peaks_positions_custom(energy: torch.Tensor, smoothed: torch.Tensor,
+                           tf: torch.Tensor, ltf: torch.Tensor,
+                           custom_map, consts: spectral.SpectralConsts,
+                           plain: bool = False):
+    """peaks_positions under a custom frequency map: G's runs entry, the
+    callable on every slot of avg_freq [R, B // 2 + 2] on the card (float32
+    in and out, elementwise: spectral.custom_map_freq holds it to that),
+    then G's out entry.  plain=True takes both entries' plain versions on
+    any device."""
+    runs = peak_runs_plain if plain else peak_runs
+    out = output_positions_plain if plain else output_positions
+    peak_in, avg_freq, n_peaks = runs(energy, smoothed, consts)
+    mapped = spectral.custom_map_freq(custom_map, avg_freq)
+    return out(peak_in, mapped, n_peaks, tf, ltf, energy.shape[1], consts)
+
+
+def runs_stamps(energy: torch.Tensor, smoothed: torch.Tensor,
+                consts: spectral.SpectralConsts) -> torch.Tensor:
+    """The runs entry's timed entry (never on the main path): per CTA the
+    cycles of each of RUNS_PHASES, as phase_stamps.  Not counted."""
+    _check_rows("peak_runs", energy, smoothed, consts)
+    P = len(RUNS_PHASES)
+    stamps = torch.zeros((energy.shape[0], P + 3), dtype=torch.int64,
+                         device=energy.device)
+    _launch_runs("peaks_runs_timed", energy, smoothed, consts,
+                 stamps.data_ptr())
+    return stamps[stamps[:, P + 1] > 0]
+
+
+def out_stamps(peak_in: torch.Tensor, mapped: torch.Tensor,
+               n_peaks: torch.Tensor, tf: torch.Tensor, ltf: torch.Tensor,
+               B: int, consts: spectral.SpectralConsts) -> torch.Tensor:
+    """The out entry's timed entry (never on the main path): per CTA the
+    cycles of each of OUT_PHASES, as phase_stamps.  Not counted."""
+    _check_out(peak_in, mapped, n_peaks, tf, ltf, B, consts)
+    P = len(OUT_PHASES)
+    stamps = torch.zeros((peak_in.shape[0], P + 3), dtype=torch.int64,
+                         device=peak_in.device)
+    _launch_out("peaks_out_timed", peak_in, mapped, n_peaks, tf, ltf, B,
+                consts, stamps.data_ptr())
+    return stamps[stamps[:, P + 1] > 0]

@@ -9,8 +9,9 @@ a batch at once, in complex64:
     every block re-analysed) and the general gathers;
   - for frequency-mapped renders: cross-channel energy, the slew smoothing
     (kernel C, its four passes in one launch), peaks and the output map
-    (kernel G, one launch), and the prediction lookups at the mapped
-    positions in one multi-set interpolation (kernel A);
+    (kernel G, one launch; under a custom map its runs entry, the callable
+    and its out entry), and the prediction lookups at the mapped positions
+    in one multi-set interpolation (kernel A);
   - for formant renders (:970-1036): the pitch estimate (top-3 scan, kernel
     F, and the two freqEstimate chains over blocks in one launch of kernel
     C) unless a base frequency is given, the envelope's eight decay passes
@@ -80,24 +81,34 @@ def _where0(cond, x):
 
 
 def _formant_targets(controls: spectral.Controls, compensation: bool, B: int,
-                     N: int, device: torch.device):
+                     N: int, device: torch.device, custom_map=None):
     """The envelope lookup's static positions (:1011-1036): the target band
-    of each bin (inverse formant map, after the pitch map when compensating)
-    as JAX's clipped take reads it: low and high indices into the envelope
-    padded with two zeros, the fraction, and the target_band < 0 mask, each
-    [B], or [nB, B] for per-block controls.  Float32 on the CPU, computed
-    once per (controls, shape, device)."""
+    of each bin (inverse formant map, after the pitch map when compensating:
+    the custom map if one is set) as JAX's clipped take reads it: low and
+    high indices into the envelope padded with two zeros, the fraction, and
+    the target_band < 0 mask, each [B], or [nB, B] for per-block controls.
+    Float32 on the CPU (a custom map runs on `device`), computed once per
+    (controls, custom map, shape, device).  The cache keys on the callable
+    itself and holds it, so its id cannot be reused while the entry
+    lives."""
+    if not compensation:
+        custom_map = None
     return _formant_targets_cached(controls.key(), compensation, B, N,
-                                   device)
+                                   device, custom_map)
 
 
 @functools.lru_cache(maxsize=8)
 def _formant_targets_cached(key: tuple, compensation: bool, B: int, N: int,
-                            device: torch.device):
+                            device: torch.device, custom_map):
     controls = spectral.Controls.from_key(key)
     band_freq = (torch.arange(B, dtype=torch.float32) + 0.5) / N
-    out_f = (spectral.map_freq(band_freq, controls) if compensation
-             else band_freq)
+    if custom_map is not None:
+        out_f = spectral.custom_map_freq(custom_map,
+                                         band_freq.to(device)).cpu()
+    elif compensation:
+        out_f = spectral.map_freq(band_freq, controls)
+    else:
+        out_f = band_freq
     target = spectral.inv_map_formant(out_f, controls) * float(N) - 0.5
     tb = target.clamp(max=B)
     floor_band = torch.floor(tb)
@@ -200,7 +211,8 @@ def _formant_ratio(metric: torch.Tensor, batch: int,
     env, _ = run(metric, zeros(R), passes)
 
     lo_i, hi_i, frac, below = _formant_targets(
-        controls, flags.formant_compensation, B, consts.fft_samples, dev)
+        controls, flags.formant_compensation, B, consts.fft_samples, dev,
+        flags.custom_map)
     env_pad = F.pad(env, (0, 2))
     if lo_i.dim() == 1:
         lo, hi = env_pad[:, lo_i], env_pad[:, hi_i]
@@ -336,11 +348,18 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
         # the peaks and output map in one launch (kernel G), which also
         # writes kernel A's three position sets: input_bin, input_bin - tf
         # and input_bin - longv*tf of each row's block (:744-786)
-        peaks_map = (peaks.peaks_positions_plain if plain
-                     else peaks.peaks_positions)
         tf_d, ltf_d = _vote_shifts(tf.astype(f32).tobytes(), ltf.tobytes(),
                                    dev)
-        pos, freq_grad = peaks_map(energy, sm, tf_d, ltf_d, controls, consts)
+        if flags.custom_map is not None:
+            # a custom map (a Python callable) runs between G's runs entry
+            # and its out entry, on the card
+            pos, freq_grad = peaks.peaks_positions_custom(
+                energy, sm, tf_d, ltf_d, flags.custom_map, consts, plain)
+        else:
+            peaks_map = (peaks.peaks_positions_plain if plain
+                         else peaks.peaks_positions)
+            pos, freq_grad = peaks_map(energy, sm, tf_d, ltf_d, controls,
+                                       consts)
         if debug:
             dbg.update(energy=energy, smoothed=sm, input_bin=pos[:, 0],
                        freq_grad=freq_grad, pos=pos, shifts=(tf_d, ltf_d))

@@ -64,7 +64,7 @@ class SpectralConsts:
 @dataclasses.dataclass(frozen=True)
 class SpectralFlags:
     """Static branch structure (the reference's bools)."""
-    mapped: bool                  # freqMultiplier != 1 (:300)
+    mapped: bool                  # customFreqMap || freqMultiplier != 1 (:300)
     process_formants: bool = False        # (:310)
     formant_compensation: bool = False
     formant_auto: bool = True     # formantBaseFreq <= 0 (in some block):
@@ -74,6 +74,11 @@ class SpectralFlags:
     # only by the randomised binTimeFactors above 2x (:747-757); key is a
     # clip's prng.key(seed).  None: prng.uniform, JAX's seeded threefry.
     random_engine: Optional[Callable] = None
+    # the reference's customFreqMap (:119-122, 850-851): an elementwise
+    # callable from input to output frequency (normalised, cycles a
+    # sample) on float32 tensors of the render's device, which replaces
+    # the multiplier and its tonality limit.  None: the built-in map.
+    custom_map: Optional[Callable] = None
 
 
 class Controls(NamedTuple):
@@ -129,13 +134,38 @@ def _bcast(value, like: torch.Tensor):
 # Frequency maps (signalsmith-stretch.h:850-856)
 # ---------------------------------------------------------------------------
 def map_freq(freq: torch.Tensor, controls: Controls) -> torch.Tensor:
-    """Per-row controls ([n] arrays) broadcast as [n, 1] against freq."""
+    """The built-in frequency map: the multiplier with its tonality limit;
+    per-row controls ([n] arrays) broadcast as [n, 1] against freq.  A
+    custom map goes through custom_map_freq instead."""
     limit = np.asarray(controls.freq_tonality_limit, f32)
     mult = np.asarray(controls.freq_multiplier, f32)
     above_off = (mult - f32(1)) * limit          # float32, rounded twice
     return torch.where(freq > _bcast(limit, freq),
                        freq + _bcast(above_off, freq),
                        freq * _bcast(mult, freq))
+
+
+def custom_map_freq(fn: Callable, freq: torch.Tensor) -> torch.Tensor:
+    """fn(freq) for a custom frequency map, held to its contract: a
+    contiguous float32 tensor of freq's shape on freq's device.  Anything
+    else raises, on every device; nothing is cast or copied."""
+    out = fn(freq)
+    name = getattr(fn, "__qualname__", None) or repr(fn)
+    if not isinstance(out, torch.Tensor):
+        raise TypeError(f"custom frequency map {name} returned "
+                        f"{type(out).__name__}, not a torch.Tensor")
+    if out.dtype != torch.float32:
+        raise TypeError(f"custom frequency map {name} returned {out.dtype}, "
+                        f"not torch.float32")
+    if out.shape != freq.shape or out.device != freq.device:
+        raise ValueError(f"custom frequency map {name} returned "
+                         f"{tuple(out.shape)} on {out.device} for "
+                         f"{tuple(freq.shape)} on {freq.device}: it must be "
+                         f"elementwise")
+    if not out.is_contiguous():
+        raise ValueError(f"custom frequency map {name} returned a tensor "
+                         f"that is not contiguous (strides {out.stride()})")
+    return out
 
 
 def inv_map_formant(freq: torch.Tensor, controls: Controls) -> torch.Tensor:
@@ -201,11 +231,22 @@ def _segment_sums(index: torch.Tensor, values: torch.Tensor,
 # ---------------------------------------------------------------------------
 def _peaks_and_map(energy: torch.Tensor, smoothed: torch.Tensor,
                    controls: Controls, consts: SpectralConsts):
-    """energy, smoothed [R, B] f32 -> (input_bin, freq_grad) [R, B].
-    Per-block controls ([nB] arrays) apply to the rows block-major per
-    clip: row r takes block r % nB's."""
+    """energy, smoothed [R, B] f32 -> (input_bin, freq_grad) [R, B] under
+    the built-in map.  Per-block controls ([nB] arrays) apply to the rows
+    block-major per clip: row r takes block r % nB's.  A custom map runs
+    between the same runs and output map (ops.peaks.peaks_positions_custom)."""
+    peak_in, avg_freq, n_peaks = _peak_runs(energy, smoothed, consts)
+    mapped = map_freq(avg_freq, controls.tile(energy.shape[0]))
+    return _output_map(peak_in, mapped, n_peaks, energy.shape[1], consts)
+
+
+def _peak_runs(energy: torch.Tensor, smoothed: torch.Tensor,
+               consts: SpectralConsts):
+    """The runs of _peaks_and_map: energy, smoothed [R, B] f32 -> (peak_in,
+    avg_freq) [R, nseg] f32, nseg = B // 2 + 2, and n_peaks [R] int32.  Slot
+    i < n_peaks[r] holds peak i's average band and its frequency (avg +
+    0.5) / N; the later slots hold 0 in both."""
     R, B = energy.shape
-    controls = controls.tile(R)
     dev = energy.device
     nseg = B // 2 + 2
     above = energy > smoothed
@@ -223,9 +264,24 @@ def _peaks_and_map(energy: torch.Tensor, smoothed: torch.Tensor,
     valid = torch.arange(nseg, device=dev)[None, :] < n_peaks[:, None]
     avg_band = band_sum / torch.where(energy_sum == 0,
                                       torch.ones_like(energy_sum), energy_sum)
-    peak_in = torch.where(valid, avg_band, torch.zeros_like(avg_band))
-    avg_freq = _band_to_freq(avg_band, consts)
-    peak_out_raw = _freq_to_band(map_freq(avg_freq, controls), consts)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return (torch.where(valid, avg_band, zero),
+            torch.where(valid, _band_to_freq(avg_band, consts), zero),
+            n_peaks.to(torch.int32))
+
+
+def _output_map(peak_in: torch.Tensor, mapped: torch.Tensor,
+                n_peaks: torch.Tensor, B: int, consts: SpectralConsts):
+    """The output map of _peaks_and_map from the runs: peak_in [R, nseg],
+    mapped [R, nseg] (each peak's frequency through the map; slots >=
+    n_peaks[r] may hold anything, NaN too: they are masked) and n_peaks
+    [R] -> (input_bin, freq_grad) [R, B] f32."""
+    R, nseg = peak_in.shape
+    dev = peak_in.device
+    n_peaks = n_peaks.to(torch.int64)
+    b_idx = torch.arange(B, dtype=torch.float32, device=dev)
+    valid = torch.arange(nseg, device=dev)[None, :] < n_peaks[:, None]
+    peak_out_raw = _freq_to_band(mapped, consts)
     peak_out = torch.where(valid, peak_out_raw,
                            torch.full_like(peak_out_raw, math.inf))
 

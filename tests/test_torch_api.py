@@ -258,10 +258,10 @@ def test_seed_and_random_engine(stereo_signal):
 
 
 def test_not_ported_methods_raise():
+    """The streaming methods are not ported yet (custom maps are:
+    tests/test_torch_custom_map.py)."""
     s = SignalsmithStretch(device="cpu")
     s.preset_default(1, RATE)
-    with pytest.raises(NotImplementedError, match="custom maps"):
-        s.set_freq_map(lambda f: f * 2)
     for call in (lambda: s.process(np.zeros((1, 10)), 10),
                  lambda: s.seek(np.zeros((1, 10)), 1.0),
                  lambda: s.output_seek(np.zeros((1, 10))),

@@ -483,3 +483,117 @@ def test_cli_on_card(dev, tmp_path):
     want, ok = s.exact(clip, round(n * 1.25))
     assert orate == rate and out.shape == (2, round(n * 1.25))
     np.testing.assert_array_equal(out, want)
+
+
+def _tonality_callable(controls):
+    """The built-in map of scalar controls written as a torch callable."""
+    from signalsmith_stretch_torch.ops import peaks
+    limit, mult, above_off = (float(v) for v in
+                              peaks.map_constants(controls)[0])
+
+    def fn(f):
+        return torch.where(f > limit, f + above_off, f * mult)
+    return fn
+
+
+@pytest.mark.parametrize("source", ["render", "edge_rows_512",
+                                    "edge_rows_1000", "edge_rows_4096",
+                                    "tiled_1000", "tiled_998"])
+def test_peaks_split_entries_match_plain(dev, source):
+    """G's runs entry and out entry (the split around a custom map) each
+    bit-equal to its plain version on the card and on a CPU copy of its
+    inputs; the out entry reads only the valid slots (NaN in the others
+    changes nothing); the two entries around the built-in map written as a
+    callable give the one-launch G's four planes.  The tiled sources hold
+    the edge rows 70 times over (980 rows, more than the CTAs resident on
+    an H100, so each CTA walks several rows), at a width that takes the
+    16-byte path (1000) and one that does not (998)."""
+    from signalsmith_stretch_torch import engine, planner, spectral
+    from signalsmith_stretch_torch.ops import peaks
+    model, rate, n = _mapped_model(dev)
+    consts = model.plan.consts
+    if source == "render":
+        t = np.arange(n) / rate
+        clip = np.stack([0.4 * np.sin(2 * np.pi * 165 * t + c)
+                         + 0.02 * np.random.default_rng(13).standard_normal(n)
+                         for c in range(2)])
+        spectra, prev = engine.analyze_stage(
+            _t(clip[None].astype(np.float32), dev), model.plan)
+        _, dbg = planner.plan_spectral(spectra, prev, model.plan.arrays,
+                                       model.controls, model.flags, consts,
+                                       plain=True, debug=True)
+        e, s = dbg["energy"], dbg["smoothed"]
+        tf, ltf = dbg["shifts"]
+    else:
+        rows = chip_smoke.peaks_edge_rows(int(source.rsplit("_", 1)[1]))
+        reps = 70 if source.startswith("tiled") else 1
+        e, s = (_t(np.tile(a, (reps, 1)), dev) for a in rows)
+        shifts = np.random.default_rng(4).uniform(0.5, 2.0, 7)
+        tf = _t(shifts.astype(np.float32), dev)
+        ltf = _t(np.float32(6) * shifts.astype(np.float32), dev)
+    B = e.shape[1]
+    runs = peaks.peak_runs(e, s, consts)
+    for want in (peaks.peak_runs_plain(e.cpu(), s.cpu(), consts),
+                 peaks.peak_runs_plain(e, s, consts)):
+        assert all(chip_smoke.same_bits(g.cpu(), w.cpu())
+                   for g, w in zip(runs, want))
+    peak_in, avg_freq, n_peaks = runs
+    invalid = (torch.arange(peak_in.shape[1], device=dev)[None]
+               >= n_peaks[:, None])
+    mapped = spectral.map_freq(avg_freq, model.controls)
+    nan = torch.where(invalid, torch.full_like(mapped, float("nan")), mapped)
+    args = (n_peaks, tf, ltf, B, consts)
+    got = peaks.output_positions(peak_in, mapped, *args)
+    for m in (mapped, nan):
+        for g, w in zip(peaks.output_positions(peak_in, m, *args), got):
+            assert chip_smoke.same_bits(g, w)
+    cpu = peaks.output_positions_plain(peak_in.cpu(), mapped.cpu(),
+                                       *(a.cpu() for a in args[:3]), B,
+                                       consts)
+    card = peaks.output_positions_plain(peak_in, mapped, *args)
+    one = peaks.peaks_positions(e, s, tf, ltf, model.controls, consts)
+    custom = peaks.peaks_positions_custom(
+        e, s, tf, ltf, _tonality_callable(model.controls), consts)
+    for g, c, p, o, x in zip(got, cpu, card, one, custom):
+        assert chip_smoke.same_bits(g.cpu(), c)
+        assert chip_smoke.same_bits(p.cpu(), c)
+        assert chip_smoke.same_bits(o, g) and chip_smoke.same_bits(x, g)
+
+
+def test_planner_custom_map_launches(dev):
+    """Under a custom map the planner launches G's runs and out entries
+    once each and the one-launch G not at all, and plans the bits of the
+    built-in map; the timed entries split each entry by phase."""
+    import dataclasses
+    from signalsmith_stretch_torch import engine, planner
+    from signalsmith_stretch_torch.ops import peaks
+    model, _, n = _mapped_model(dev)
+    clip = _t(np.random.default_rng(14).standard_normal((1, 2, n))
+              .astype(np.float32) * 0.1, dev)
+    spectra, prev = engine.analyze_stage(clip, model.plan)
+    flags = dataclasses.replace(model.flags,
+                                custom_map=_tonality_callable(model.controls))
+    outs = []
+    for f, want in ((model.flags, dict(peaks_map=1, peaks_runs=0,
+                                       peaks_out=0)),
+                    (flags, dict(peaks_map=0, peaks_runs=1, peaks_out=1))):
+        chip_smoke.reset_counters()
+        out, dbg = planner.plan_spectral(spectra, prev, model.plan.arrays,
+                                         model.controls, f,
+                                         model.plan.consts, debug=True)
+        torch.cuda.synchronize()
+        counts = chip_smoke.counters()
+        assert {k: counts[k] for k in want} == want
+        assert counts["interp_multi"] == counts["iir"] == 1
+        outs.append(out)
+    for a, b in zip(*outs):
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert chip_smoke.same_bits(x, y)
+    e, s = dbg["energy"], dbg["smoothed"]
+    st = peaks.runs_stamps(e, s, model.plan.consts)
+    assert st.shape[1] == len(peaks.RUNS_PHASES) + 3 and st.shape[0] > 0
+    peak_in, avg_freq, n_peaks = peaks.peak_runs(e, s, model.plan.consts)
+    st = peaks.out_stamps(peak_in, avg_freq, n_peaks, *dbg["shifts"],
+                          e.shape[1], model.plan.consts)
+    assert st.shape[1] == len(peaks.OUT_PHASES) + 3 and st.shape[0] > 0

@@ -17,7 +17,11 @@ a lane owns and their run ids, the serial run sums, the histogram's
 segment prefixes and the map's lanes on neighbouring bins) in float32
 numpy, held bit-equal to the plain version's four planes (the position
 sets and the gradient) at the kernel's 512 threads and at fewer, and at
-widths that leave every part ragged.
+widths that leave every part ragged.  `split_kernel_model` is the same
+source's runs and out entries (G split around a custom map: the write
+phase's zero-filled slots, the out entry's histogram zeroed whole once and
+its tail at each row's end), held to the plain split and the one-launch
+plain version the same way.
 """
 import jax
 import jax.numpy as jnp
@@ -116,191 +120,282 @@ def _warp_inclusive(v):
     return np.cumsum(np.asarray(v, np.int64))
 
 
+def _flags_and_runs(E, S, B, threads, peak):
+    """The flags and runs phases of csrc/peaks.cu on one row: a warp takes
+    a segment of 256 bins, one ballot a 32-bin word (bit j = bin 32w + j),
+    run starts above & ~(above << 1 | carry) with the carry between words
+    and segments, the segment's start count; a thread owns the 8 bins of
+    chunk c (segment c // 32 is its warp's), its run ids the earlier
+    segments' counts plus a warp prefix of its lanes' counts; it walks the
+    bitmask (a zero word past the last) to each run's end and sums the run
+    bin-ascending from 0 in float32, then calls peak(run_id, avg).  Returns
+    the row's number of runs."""
+    NW, NS, W = threads // 32, -(-B // 256), -(-B // 32)
+    above = np.zeros(W + 1, np.uint64)    # above[W] stays 0
+    seg_starts = np.zeros(NS, np.int64)
+    for warp in range(NW):
+        for s in range(warp, NS, NW):
+            carry = int(s > 0 and E[256 * s - 1] > S[256 * s - 1])
+            for w in range(8 * s, min(8 * s + 8, W)):
+                b = 32 * w + np.arange(32)
+                lanes = b < B
+                bits = np.zeros(32, bool)
+                bits[lanes] = E[b[lanes]] > S[b[lanes]]
+                a = int(np.sum(bits.astype(np.uint64)
+                               << np.arange(32, dtype=np.uint64)))
+                above[w] = a
+                starts = a & ~(((a << 1) & 0xffffffff) | carry)
+                seg_starts[s] += bin(starts).count("1")
+                carry = a >> 31
+    for c0 in range(0, 32 * NS, threads):
+        for warp in range(NW):
+            s = c0 // 32 + warp
+            if s >= NS:
+                break
+            base = int(seg_starts[:s].sum())
+            chunks = c0 + 32 * warp + np.arange(32)
+            assert (chunks // 32 == s).all()
+            starts, counts = [], []
+            for c in chunks:
+                b0 = 8 * int(c)
+                st = 0
+                if b0 < B:
+                    a8 = (int(above[c // 4]) >> (8 * (c % 4))) & 0xff
+                    prev = ((int(above[(b0 - 1) // 32])
+                             >> ((b0 - 1) % 32)) & 1) if b0 else 0
+                    st = a8 & ~((a8 << 1) | prev) & 0xff
+                starts.append((b0, st))
+                counts.append(bin(st).count("1"))
+            excl = _warp_inclusive(counts) - counts
+            for (b0, st), ex in zip(starts, excl):
+                run_id = base + int(ex)
+                for j in range(8):
+                    if not st >> j & 1:
+                        continue
+                    a = b0 + j
+                    w = a // 32
+                    m = ~int(above[w]) & (0xffffffff << (a % 32)) \
+                        & 0xffffffff
+                    while not m:
+                        w += 1
+                        m = ~int(above[w]) & 0xffffffff
+                    z = 32 * w + (m & -m).bit_length() - 2
+                    band_sum = energy_sum = f32(0)
+                    for b in range(a, z + 1):
+                        band_sum = f32(band_sum + f32(f32(b) * E[b]))
+                        energy_sum = f32(energy_sum + E[b])
+                    peak(run_id, f32(band_sum / (f32(1) if energy_sum == 0
+                                                 else energy_sum)))
+                    run_id += 1
+    return int(seg_starts.sum())
+
+
+def _count_peak(hist, peak_in, peak_out, i, avg, mapped, Nf, B):
+    """count_peak: the output band mapped * N - 0.5 and its histogram
+    cell clamp(ceil(out), 0, B)."""
+    out = f32(f32(mapped * Nf) - f32(0.5))
+    peak_in[i], peak_out[i] = avg, out
+    hist[int(min(max(np.ceil(out), f32(0)), f32(B)))] += 1
+
+
+def _prefix_and_map(hist, peak_in, peak_out, n, B, threads, vec):
+    """The prefix and map phases on one row: a warp prefixes a segment's
+    histogram, 8 bins a lane; each pair of neighbouring peaks gets its map
+    constants (one division a pair), pair k - 1 between peaks k - 1 and k
+    (past the last: input 0, output +inf); the map takes `vec` bins a lane
+    (a warp's bins in one segment), k = the prefix plus the earlier
+    segments' totals, zeroing the histogram below B as it reads it.
+    Returns (input_bin, freq_grad) [B] float32."""
+    NW, NS = threads // 32, -(-B // 256)
+    nseg = B // 2 + 2
+    Bp, M = -(-B // 4) * 4, (B + 1) // 2
+    assert 4 * M <= 2 * Bp        # the pair tables fit in a row's buffer
+    seg_total = np.zeros(NS, np.int64)
+    for warp in range(NW):
+        for s in range(warp, NS, NW):
+            lanes = hist[256 * s:256 * s + 256].reshape(32, 8)
+            local = np.cumsum(lanes, 1)
+            incl = _warp_inclusive(local[:, -1])
+            hist[256 * s:256 * s + 256] = (
+                local + (incl - local[:, -1])[:, None]).reshape(-1)
+            seg_total[s] = incl[-1]
+    peak_in, peak_out = peak_in[:n], peak_out[:n]
+    pad_in = np.concatenate([peak_in, np.zeros(nseg, f32)])
+    pad_out = np.concatenate([peak_out, np.full(nseg, np.inf, f32)])
+    pk = np.arange(1, n + 1)
+    pair_prev_o, prev_in = pad_out[pk - 1], pad_in[pk - 1]
+    next_o, next_in = pad_out[pk], pad_in[pk]
+    with np.errstate(all="ignore"):
+        pair_scale = f32(1) / (next_o - pair_prev_o)
+        pair_offset = prev_in - pair_prev_o
+        pair_out_scale = ((next_in - next_o) - prev_in) + pair_prev_o
+    k = np.empty(B, np.int64)
+    nq = -(-B // vec)
+    for q0 in range(0, nq, threads):
+        for warp in range(NW):
+            q = q0 + 32 * warp + np.arange(32)
+            s = int(q[0]) * vec // 256
+            if s >= NS:
+                break
+            assert (q * vec // 256 == s).all()
+            bins = (q[:, None] * vec + np.arange(vec)).reshape(-1)
+            bins = bins[bins < B]
+            k[bins] = hist[bins] + seg_total[:s].sum()
+            hist[bins] = 0
+    fb = np.arange(B, dtype=f32)
+    if n == 0:
+        return fb, np.ones(B, f32)
+    pair = np.maximum(k - 1, 0)        # k = 0: the bottom rule
+    prev_o, rs = pair_prev_o[pair], pair_scale[pair]
+    offset, scale = pair_offset[pair], pair_out_scale[pair]
+    with np.errstate(all="ignore"):
+        gs = scale * rs
+        x = (fb - prev_o) * rs
+        h = (x * x) * (f32(3) - f32(2) * x)
+        ib = (fb + offset) + h * scale
+        g = f32(1) + ((f32(6) * x) * (f32(1) - x)) * gs
+    top_start = max(int(peak_out[n - 1]), 0)
+    top = fb >= top_start
+    bottom = (k == 0) & ~top
+    ib = np.where(top, fb + (peak_in[n - 1] - peak_out[n - 1]),
+                  np.where(bottom, fb + (peak_in[0] - peak_out[0]), ib))
+    return ib, np.where(top | bottom, f32(1), g)
+
+
+def _row_walk(R, grid, rows_of_cta):
+    """The persistent grid's walk: CTA c takes rows c, c + grid, ... (the
+    next row's copy landing in the other buffer); calls rows_of_cta(cta,
+    rows) and asserts every row is visited once."""
+    visited = np.zeros(R, int)
+    for cta in range(min(grid, R)):
+        rows = list(range(cta, R, grid))
+        buffers = [cta, None]
+        for it, row in enumerate(rows):
+            assert buffers[it % 2] == row         # the copy of this row
+            if row + grid < R:                    # the next one, the other
+                buffers[(it + 1) % 2] = row + grid
+            visited[row] += 1
+        rows_of_cta(cta, rows)
+    assert (visited == 1).all()
+
+
 def peaks_kernel_model(energy, smoothed, tf, ltf, controls, N, threads=512,
                        grid=3, vec=4):
-    """csrc/peaks.cu on the CPU, phase by phase, at `threads` threads (a
-    multiple of 32) and `grid` CTAs walking the rows (row r by CTA r %
-    grid, the next row's copy landing in the other buffer; each row visited
-    once).  A warp takes a segment of 256 bins: one ballot a 32-bin word
-    (bit j = bin 32w + j), run starts above & ~(above << 1 | carry) with the
-    carry between words and segments, the segment's start count.  A thread
-    owns the 8 bins of chunk c (segment c // 32 is its warp's); its run ids
-    are the earlier segments' counts plus a warp prefix of its lanes'
-    counts; it walks the bitmask (a zero word past the last) to each run's
-    end and sums the run bin-ascending from 0 in float32, then maps the
-    peak and counts clamp(ceil(out), 0, B).  A warp prefixes a segment's
-    histogram, 8 bins a lane; each pair of neighbouring peaks gets its map
-    constants (one division a pair), in tables that must fit in the row's
-    energy and smoothed buffer; the map takes `vec` bins a lane, k = the
-    prefix plus the earlier segments' totals, and zeroes the histogram as
-    it reads it (its tail past B is zeroed by the next row's flags phase:
-    the histogram is all zero when a row's runs start).  Returns
-    (pos [R, 3, B], freq_grad [R, B]) float32 numpy."""
+    """csrc/peaks.cu's one-launch entry on the CPU, phase by phase, at
+    `threads` threads (a multiple of 32) and `grid` CTAs walking the rows
+    (_row_walk): flags and runs (_flags_and_runs), each peak mapped with
+    its row's constants and counted (_count_peak), prefix and map
+    (_prefix_and_map).  The histogram is zeroed once below B; its tail
+    past B is zeroed by each row's flags phase, the rest by the last row's
+    map: it is all zero when a row's runs start.  Returns (pos [R, 3, B],
+    freq_grad [R, B]) float32 numpy."""
     assert threads % 32 == 0
     energy = np.asarray(energy, f32)
     smoothed = np.asarray(smoothed, f32)
     R, B = energy.shape
     nB = len(tf)
-    NW, NS, W = threads // 32, -(-B // 256), -(-B // 32)
+    NS = -(-B // 256)
     vec = vec if B % 4 == 0 else 1
     ctl = peaks.map_constants(controls)          # [1 or nB, 3]
-    Nf, inf = f32(N), f32(np.inf)
+    Nf = f32(N)
     inv_n = f32(f32(1) / Nf)
-    nseg = B // 2 + 2
     pos = np.full((R, 3, B), np.nan, f32)
     grad = np.full((R, B), np.nan, f32)
-    visited = np.zeros(R, int)
-    buffers = [None, None]
-    Bp, M = -(-B // 4) * 4, (B + 1) // 2
-    assert 4 * M <= 2 * Bp        # the pair tables fit in a row's buffer
-    for cta in range(min(grid, R)):
+
+    def cta_rows(cta, rows):
         hist = np.zeros(256 * NS + 4, np.int64)     # zeroed once, below B
-        buffers[0] = cta
-        for it, row in enumerate(range(cta, R, grid)):
-            assert buffers[it % 2] == row         # the copy of this row
-            if row + grid < R:                    # the next one, the other
-                buffers[(it + 1) % 2] = row + grid
-            E, S = energy[row], smoothed[row]
-            visited[row] += 1
+        for row in rows:
             limit, mult, above_off = ctl[row % len(ctl)]
-
-            # flags: words by ballot, segments' start counts
-            above = np.zeros(W + 1, np.uint64)    # above[W] stays 0
-            seg_starts = np.zeros(NS, np.int64)
-            for warp in range(NW):
-                for s in range(warp, NS, NW):
-                    carry = int(s > 0 and E[256 * s - 1] > S[256 * s - 1])
-                    for w in range(8 * s, min(8 * s + 8, W)):
-                        b = 32 * w + np.arange(32)
-                        lanes = b < B
-                        bits = np.zeros(32, bool)
-                        bits[lanes] = E[b[lanes]] > S[b[lanes]]
-                        a = int(np.sum(bits.astype(np.uint64)
-                                       << np.arange(32, dtype=np.uint64)))
-                        above[w] = a
-                        starts = a & ~(((a << 1) & 0xffffffff) | carry)
-                        seg_starts[s] += bin(starts).count("1")
-                        carry = a >> 31
-            n = int(seg_starts.sum())
-
-            # runs: chunks of 8 bins, ids, sums, peaks, histogram (its tail
-            # zeroed in the flags phase, the rest by the last row's map)
-            hist[B:] = 0
+            hist[B:] = 0                          # the flags phase
             assert not hist.any()
-            peak_in = np.full(n, np.nan, f32)
-            peak_out = np.full(n, np.nan, f32)
-            for c0 in range(0, 32 * NS, threads):
-                for warp in range(NW):
-                    s = c0 // 32 + warp
-                    if s >= NS:
-                        break
-                    base = int(seg_starts[:s].sum())
-                    chunks = c0 + 32 * warp + np.arange(32)
-                    assert (chunks // 32 == s).all()
-                    starts, counts = [], []
-                    for c in chunks:
-                        b0 = 8 * int(c)
-                        st = 0
-                        if b0 < B:
-                            a8 = (int(above[c // 4]) >> (8 * (c % 4))) & 0xff
-                            prev = ((int(above[(b0 - 1) // 32])
-                                     >> ((b0 - 1) % 32)) & 1) if b0 else 0
-                            st = a8 & ~((a8 << 1) | prev) & 0xff
-                        starts.append((b0, st))
-                        counts.append(bin(st).count("1"))
-                    excl = _warp_inclusive(counts) - counts
-                    for (b0, st), ex in zip(starts, excl):
-                        run_id = base + int(ex)
-                        for j in range(8):
-                            if not st >> j & 1:
-                                continue
-                            a = b0 + j
-                            w = a // 32
-                            m = ~int(above[w]) & (0xffffffff << (a % 32)) \
-                                & 0xffffffff
-                            while not m:
-                                w += 1
-                                m = ~int(above[w]) & 0xffffffff
-                            z = 32 * w + (m & -m).bit_length() - 2
-                            band_sum = energy_sum = f32(0)
-                            for b in range(a, z + 1):
-                                band_sum = f32(band_sum + f32(f32(b) * E[b]))
-                                energy_sum = f32(energy_sum + E[b])
-                            avg = f32(band_sum / (f32(1) if energy_sum == 0
-                                                  else energy_sum))
-                            freq = f32(f32(avg + f32(0.5)) * inv_n)
-                            mapped = (f32(freq + above_off) if freq > limit
-                                      else f32(freq * mult))
-                            out = f32(f32(mapped * Nf) - f32(0.5))
-                            peak_in[run_id], peak_out[run_id] = avg, out
-                            hist[int(min(max(np.ceil(out), f32(0)),
-                                         f32(B)))] += 1
-                            run_id += 1
-            assert not np.isnan(peak_in).any()    # every id written once
+            peak_in = np.full(B, np.nan, f32)
+            peak_out = np.full(B, np.nan, f32)
 
-            # prefix: a warp a segment, 8 bins a lane
-            seg_total = np.zeros(NS, np.int64)
-            for warp in range(NW):
-                for s in range(warp, NS, NW):
-                    lanes = hist[256 * s:256 * s + 256].reshape(32, 8)
-                    local = np.cumsum(lanes, 1)
-                    incl = _warp_inclusive(local[:, -1])
-                    hist[256 * s:256 * s + 256] = (
-                        local + (incl - local[:, -1])[:, None]).reshape(-1)
-                    seg_total[s] = incl[-1]
+            def peak(i, avg):
+                freq = f32(f32(avg + f32(0.5)) * inv_n)
+                mapped = (f32(freq + above_off) if freq > limit
+                          else f32(freq * mult))
+                _count_peak(hist, peak_in, peak_out, i, avg, mapped, Nf, B)
 
-            # the pairs' constants, pair k - 1 between peaks k - 1 and k
-            # (past the last: input 0, output +inf), one division a pair
-            pad_in = np.concatenate([peak_in, np.zeros(nseg, f32)])
-            pad_out = np.concatenate([peak_out, np.full(nseg, inf, f32)])
-            pk = np.arange(1, n + 1)
-            pair_prev_o, prev_in = pad_out[pk - 1], pad_in[pk - 1]
-            next_o, next_in = pad_out[pk], pad_in[pk]
-            with np.errstate(all="ignore"):
-                pair_scale = f32(1) / (next_o - pair_prev_o)
-                pair_offset = prev_in - pair_prev_o
-                pair_out_scale = ((next_in - next_o) - prev_in) + pair_prev_o
-
-            # map: `vec` bins a lane, a warp's bins in one segment, the
-            # histogram zeroed as it is read
-            k = np.empty(B, np.int64)
-            nq = -(-B // vec)
-            for q0 in range(0, nq, threads):
-                for warp in range(NW):
-                    q = q0 + 32 * warp + np.arange(32)
-                    s = int(q[0]) * vec // 256
-                    if s >= NS:
-                        break
-                    assert (q * vec // 256 == s).all()
-                    bins = (q[:, None] * vec + np.arange(vec)).reshape(-1)
-                    bins = bins[bins < B]
-                    k[bins] = hist[bins] + seg_total[:s].sum()
-                    hist[bins] = 0
-            fb = np.arange(B, dtype=f32)
-            if n == 0:
-                ib, g = fb, np.ones(B, f32)
-            else:
-                pair = np.maximum(k - 1, 0)        # k = 0: the bottom rule
-                prev_o, rs = pair_prev_o[pair], pair_scale[pair]
-                offset, scale = pair_offset[pair], pair_out_scale[pair]
-                with np.errstate(all="ignore"):
-                    gs = scale * rs
-                    x = (fb - prev_o) * rs
-                    h = (x * x) * (f32(3) - f32(2) * x)
-                    ib = (fb + offset) + h * scale
-                    g = f32(1) + ((f32(6) * x) * (f32(1) - x)) * gs
-                top_start = max(int(peak_out[n - 1]), 0)
-                top = fb >= top_start
-                bottom = (k == 0) & ~top
-                ib = np.where(top, fb + (peak_in[n - 1] - peak_out[n - 1]),
-                              np.where(bottom, fb + (peak_in[0] - peak_out[0]),
-                                       ib))
-                g = np.where(top | bottom, f32(1), g)
+            n = _flags_and_runs(energy[row], smoothed[row], B, threads, peak)
+            assert not np.isnan(peak_in[:n]).any()  # every id written once
+            ib, g = _prefix_and_map(hist, peak_in, peak_out, n, B, threads,
+                                    vec)
             blk = row % nB
             pos[row] = [ib, ib - tf[blk], ib - ltf[blk]]
             grad[row] = g
-    assert (visited == 1).all()
+
+    _row_walk(R, grid, cta_rows)
     return pos, grad
+
+
+def split_kernel_model(energy, smoothed, tf, ltf, custom_map, N, threads=512,
+                       grid=3, vec=4):
+    """csrc/peaks.cu's runs entry and out entry on the CPU around a custom
+    map (`custom_map`: float32 numpy in and out), each a persistent walk
+    of `grid` CTAs.  The runs entry: flags and runs, then the write phase,
+    peak_in and avg_freq = (avg + 0.5) / N on every slot of [R, B // 2 +
+    2], 0 from n_peaks on, and n_peaks.  The out entry: its histogram
+    zeroed whole once; a row counts its n_peaks[r] peaks (only those
+    slots read), then prefix and map, and zeroes the tail past B at the
+    end, so the histogram is all zero at every row's start.  Returns
+    (pos, freq_grad, (peak_in, avg_freq, n_peaks)) float32 numpy."""
+    assert threads % 32 == 0
+    energy = np.asarray(energy, f32)
+    smoothed = np.asarray(smoothed, f32)
+    R, B = energy.shape
+    nB = len(tf)
+    NS = -(-B // 256)
+    nseg = B // 2 + 2
+    vec = vec if B % 4 == 0 else 1
+    Nf = f32(N)
+    inv_n = f32(f32(1) / Nf)
+    PR = -(-((B + 1) // 2) // 4) * 4          # the tables' slots
+    slots_in = np.full((R, nseg), np.nan, f32)
+    slots_freq = np.full((R, nseg), np.nan, f32)
+    n_peaks = np.full(R, -1, np.int32)
+
+    def runs_rows(cta, rows):
+        for row in rows:
+            peak_in = np.full(PR, np.nan, f32)
+            freq = np.full(PR, np.nan, f32)
+
+            def peak(i, avg):
+                peak_in[i] = avg
+                freq[i] = f32(f32(avg + f32(0.5)) * inv_n)
+
+            n = _flags_and_runs(energy[row], smoothed[row], B, threads, peak)
+            assert n <= PR and not np.isnan(peak_in[:n]).any()
+            for i in range(nseg):                 # the write phase
+                slots_in[row, i] = peak_in[i] if i < n else f32(0)
+                slots_freq[row, i] = freq[i] if i < n else f32(0)
+            n_peaks[row] = n
+
+    _row_walk(R, grid, runs_rows)
+    mapped = np.asarray(custom_map(slots_freq.copy()), f32)
+    assert mapped.shape == slots_freq.shape
+    pos = np.full((R, 3, B), np.nan, f32)
+    grad = np.full((R, B), np.nan, f32)
+
+    def out_rows(cta, rows):
+        hist = np.zeros(256 * NS + 4, np.int64)     # zeroed whole, once
+        for row in rows:
+            assert not hist.any()
+            n = min(max(int(n_peaks[row]), 0), (B + 1) // 2)
+            peak_in = np.full(PR, np.nan, f32)
+            peak_out = np.full(PR, np.nan, f32)
+            for i in range(n):                    # only the valid slots
+                _count_peak(hist, peak_in, peak_out, i, slots_in[row, i],
+                            mapped[row, i], Nf, B)
+            ib, g = _prefix_and_map(hist, peak_in, peak_out, n, B, threads,
+                                    vec)
+            hist[B:] = 0                          # the tail, at the end
+            blk = row % nB
+            pos[row] = [ib, ib - tf[blk], ib - ltf[blk]]
+            grad[row] = g
+
+    _row_walk(R, grid, out_rows)
+    return pos, grad, (slots_in, slots_freq, n_peaks)
 
 
 def _rows(B, seed):
@@ -401,3 +496,49 @@ def test_peaks_kernel_model_block_controls(threads, B):
         torch.as_tensor(ltf), ctl, model.plan.consts)
     for g, r in zip(got, ref):
         _assert_bits(g, r.numpy())
+
+
+def _tonality_maps(controls, nan_outside=False):
+    """The built-in map of scalar controls as a callable, in numpy (for
+    split_kernel_model) and in torch (for the plain versions); with
+    nan_outside, NaN on the invalid slots (whose frequency is 0)."""
+    limit, mult, above_off = peaks.map_constants(controls)[0]
+
+    def np_map(f):
+        out = np.where(f > limit, f + above_off, f * mult).astype(f32)
+        return np.where(f > 0, out, f32(np.nan)) if nan_outside else out
+
+    def torch_map(f):
+        out = torch.where(f > float(limit), f + float(above_off),
+                          f * float(mult))
+        return torch.where(f > 0, out, torch.full_like(out, float("nan"))) \
+            if nan_outside else out
+    return np_map, torch_map
+
+
+@pytest.mark.parametrize("nan_outside", [False, True], ids=["map", "nan"])
+@pytest.mark.parametrize("threads", [512, 96, 32])
+@pytest.mark.parametrize("B", [7, 300, 1000, 4096])
+def test_split_kernel_model_matches_plain(B, threads, nan_outside):
+    """G's runs and out entries on the CPU (split_kernel_model) around the
+    built-in map written as a callable, with 3 CTAs walking the rows: the
+    runs' planes and counts bit-equal to peak_runs_plain, and pos and
+    freq_grad bit-equal to the plain split (peaks_positions_custom with
+    plain=True) and to the one-launch plain version; NaN in the invalid
+    slots changes nothing."""
+    model, _ = _models()
+    e, s = _rows(B, seed=5 * B + threads)
+    R = e.shape[0]
+    tf, ltf = _shifts(R // 2, seed=B + 1)
+    np_map, torch_map = _tonality_maps(model.controls, nan_outside)
+    consts = model.plan.consts
+    pos, grad, runs = split_kernel_model(e, s, tf, ltf, np_map,
+                                         consts.fft_samples, threads)
+    args = [torch.as_tensor(a) for a in (e, s, tf, ltf)]
+    for g, w in zip(runs, peaks.peak_runs_plain(*args[:2], consts)):
+        _assert_bits(g, w.numpy())
+    split = peaks.peaks_positions_custom(*args, torch_map, consts, plain=True)
+    one = peaks.peaks_positions_plain(*args, model.controls, consts)
+    for g, w, o in zip((pos, grad), split, one):
+        _assert_bits(g, w.numpy())
+        _assert_bits(g, o.numpy())

@@ -130,8 +130,8 @@ def test_default_device_is_cuda():
 
 def test_port_imports_no_jax():
     """Importing every module of the port (the library object, the CLI,
-    the I/O and the draws among them) leaves jax and the JAX package out
-    of sys.modules."""
+    the dev CLI, the profiling utilities, the I/O and the draws among
+    them) leaves jax and the JAX package out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import signalsmith_stretch_torch as p\n"
@@ -141,7 +141,8 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'signalsmith_stretch_tpu')]\n"
         "assert len(names) >= 16, names\n"
-        "for n in ('api', 'cli', 'io', 'io.wav', 'prng'):\n"
+        "for n in ('api', 'cli', 'cli_dev', 'io', 'io.wav', 'prng',\n"
+        "          'utils', 'utils.profiling'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
