@@ -56,7 +56,22 @@ Phases, in order; any failure exits non-zero before the last line:
      exact()'s render of the same samples, quantised the same way; then the
      dev CLI (cli_dev) twice on a 10 s WAV: the golden snapshot, then the
      -60 dB gate against it with --profile, the allocation guard on both;
-  7. the kernel table as one JSON line, the nvidia-smi line, and the device
+  7. streaming: one 10 s stereo 48 kHz clip through the library object's
+     streaming methods (output_seek, process in 512-sample output calls,
+     flush at rate 0) at 1.25x, at pitch+12 with the 8 kHz limit, with a
+     formant shift (base estimated) and under pitch+12's map as a torch
+     callable (its stream bit-identical to pitch+12's): each stream's
+     launches a block by kernel (D, A and H once a block; C, G, E, F as its
+     flags ask), synchronising calls under torch.cuda.set_sync_debug_mode
+     (in all, and inside the block loops), ms a call (median, p99), ms a
+     block, the realtime factor and peak memory; process_block through the
+     kernels bit-equal to the plain path on the card on the stream's first
+     8 blocks; H (also with a third channel), A, G (or its split), F and D
+     at one row against their plain versions, timed, H's chain also from
+     its timed entry (`chain_ms`); the first 0.5 s through the kernels
+     against the plain path on the CPU, within 12 dB of the plain stream's
+     own 1-ulp sensitivity, band energies within 3 dB;
+  8. the kernel table as one JSON line, the nvidia-smi line, and the device
      line {"ok": true, "device": {...}} last.  A kernel's `ms` is the median
      of 20 launches, each alone between CUDA events (5 for B); `ms_b2b` the
      mean of 20 issued back to back, which hides the host's launch time.
@@ -141,6 +156,9 @@ KERNELS = (
      "signalsmith_stretch_tpu/spectral.py:261"),
     ("peaks_out", "signalsmith_stretch_torch/csrc/peaks.cu",
      "signalsmith_stretch_tpu/spectral.py:276"),
+    # the streaming engine's per-block bin sweep
+    ("block_sweep", "signalsmith_stretch_torch/csrc/block_sweep.cu",
+     "signalsmith_stretch_tpu/spectral.py:518"),
 )
 DFT_TOL = 3e-6        # of the spectrum's peak magnitude (tests/test_stft.py)
 
@@ -1043,21 +1061,25 @@ def check_formant_scans():
 
 def counters():
     from signalsmith_stretch_torch import wavefront
-    from signalsmith_stretch_torch.ops import dft, interp, peaks, scan_ops
+    from signalsmith_stretch_torch.ops import (block_sweep, dft, interp,
+                                               peaks, scan_ops)
     return {"interp_multi": interp.launches, "sweep": wavefront.launches,
             "iir": scan_ops.launches, "dft": dft.launches,
             "decay": scan_ops.decay_launches,
             "top3": scan_ops.top3_launches, "peaks_map": peaks.launches,
             "peaks_runs": peaks.runs_launches,
-            "peaks_out": peaks.out_launches}
+            "peaks_out": peaks.out_launches,
+            "block_sweep": block_sweep.launches}
 
 
 def reset_counters():
     from signalsmith_stretch_torch import wavefront
-    from signalsmith_stretch_torch.ops import dft, interp, peaks, scan_ops
+    from signalsmith_stretch_torch.ops import (block_sweep, dft, interp,
+                                               peaks, scan_ops)
     interp.launches = wavefront.launches = scan_ops.launches = 0
     dft.launches = scan_ops.decay_launches = scan_ops.top3_launches = 0
     peaks.launches = peaks.runs_launches = peaks.out_launches = 0
+    block_sweep.launches = 0
 
 
 def is_random(plan):
@@ -1081,7 +1103,8 @@ def expected_launches(flags, random=False):
             "iir": int(flags.mapped) + int(auto), "dft": 1,
             "decay": int(flags.process_formants), "top3": int(auto),
             "peaks_map": int(flags.mapped and not custom),
-            "peaks_runs": int(custom), "peaks_out": int(custom)}
+            "peaks_runs": int(custom), "peaks_out": int(custom),
+            "block_sweep": 0}
 
 
 def stage_split(model, audio):
@@ -1496,6 +1519,481 @@ def check_cli_dev():
           f"--profile stages: " + ", ".join(stages))
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the streaming engine
+# ---------------------------------------------------------------------------
+# the streams: (name, time factor, the library object's setters)
+STREAMS = (
+    ("stream_1.25x", 1.25, {}),
+    ("stream_pitch+12_tonality8k", 1.0, dict(semitones=12)),
+    ("stream_formant_vocal_shift_auto", 1.0, dict(semitones=5,
+                                                  formant_semitones=3)),
+    ("stream_custom_tonality_map", 1.0, dict(semitones=12, custom=True)),
+)
+STREAM_CHUNK = 512           # output samples a process() call
+STREAM_GATE_SECONDS = 0.5    # the kernels' stream against the plain path
+STREAM_CHECK_BLOCKS = 8      # process_block, kernels against plain versions
+
+
+def _stream_object(cfg):
+    """The library object of a stream: default preset, stereo 48 kHz, and
+    the stream's setters (an 8 kHz tonality limit with any pitch; formant
+    compensation with a formant shift, base estimated; pitch+12's map as
+    a torch callable for the custom stream)."""
+    from signalsmith_stretch_torch import SignalsmithStretch
+    _, _, kw = cfg
+    s = SignalsmithStretch(device=DEVICE)
+    s.preset_default(2, RATE)
+    if "semitones" in kw:
+        s.set_transpose_semitones(kw["semitones"], 8000 / RATE)
+    if "formant_semitones" in kw:
+        s.set_formant_semitones(kw["formant_semitones"], True)
+    if kw.get("custom"):
+        s.set_freq_map(tonality_map(s._controls()))
+    return s
+
+
+def _stream_engine(cfg, device, plain=False):
+    """A StreamingStretch of the stream's config, controls and flags on
+    `device` (plain=True: the plain versions of the kernels)."""
+    from signalsmith_stretch_torch.streaming import StreamingStretch
+    s = _stream_object(cfg)
+    return StreamingStretch(s.config, s._controls(), s._flags(), seed=0,
+                            device=device, plain=plain)
+
+
+def _stream_calls(s, clip, time_factor, out_seconds=None):
+    """Drive a stream (the library object or a StreamingStretch) as an
+    offline user would: output_seek, process in STREAM_CHUNK-sample output
+    chunks (the input in proportion), flush at rate 0.  out_seconds cuts
+    the output (no flush).  Returns (outputs, wall ms of each call)."""
+    import torch
+    cfg = getattr(s, "cfg", None) or s.config
+    L = clip.shape[1]
+    seek_len = cfg.output_seek_length(np.float32(1 / time_factor))
+    main_in = L - seek_len
+    main_out = int(round(main_in * time_factor))
+    if out_seconds is not None:
+        main_out = min(main_out, int(out_seconds * RATE))
+    outs, times = [], []
+
+    def timed(fn, *a):
+        t0 = time.perf_counter()
+        r = fn(*a)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        return r
+
+    timed(s.output_seek, clip[:, :seek_len])
+    done = in_done = 0
+    while done < main_out:
+        n = min(STREAM_CHUNK, main_out - done)
+        in_target = min(int(round((done + n) / time_factor)), main_in)
+        outs.append(timed(s.process, clip[:, seek_len + in_done:
+                                          seek_len + in_target], n))
+        in_done, done = in_target, done + n
+    if out_seconds is None:
+        outs.append(timed(s.flush, cfg.output_latency + cfg.input_latency,
+                          0.0))
+    return outs, times
+
+
+def expected_stream_launches(flags, blocks):
+    """Launches of a stream's blocks: D, A and H once a block; C once a
+    block when mapped (the smoothing) and once more with the base
+    estimated (the estimate's step); G once a block when mapped (its runs
+    and out entries under a custom map); E once a block for formants, F
+    with the base estimated."""
+    auto = flags.process_formants and flags.formant_auto
+    custom = flags.mapped and flags.custom_map is not None
+    return {"interp_multi": blocks, "sweep": 0,
+            "iir": blocks * (int(flags.mapped) + int(auto)), "dft": blocks,
+            "decay": blocks * int(flags.process_formants),
+            "top3": blocks * int(auto),
+            "peaks_map": blocks * int(flags.mapped and not custom),
+            "peaks_runs": blocks * int(custom),
+            "peaks_out": blocks * int(custom), "block_sweep": blocks}
+
+
+def _record_blocks(engine, clip, time_factor, n):
+    """The first n blocks' (carry, inputs) of a stream through the kernels,
+    recorded as process_block receives them."""
+    from signalsmith_stretch_torch import streaming
+    recorded = []
+    original = streaming.spectral.process_block
+
+    def record(carry, xs, *a, **k):
+        if len(recorded) < n:
+            recorded.append((carry, xs))
+        return original(carry, xs, *a, **k)
+
+    streaming.spectral.process_block = record
+    try:
+        _stream_calls(engine, clip, time_factor,
+                      out_seconds=(n + 4) * engine.cfg.interval_samples
+                      / RATE)
+    finally:
+        streaming.spectral.process_block = original
+    return recorded[:n]
+
+
+def check_stream_blocks(cfg, clip):
+    """process_block through the kernels against the plain path, both on
+    the card, on the same carry and D spectra for each of the stream's
+    first blocks: the output and every carry field bit-equal.  Returns the
+    last block's kernel inputs (process_block's dbg)."""
+    import torch
+    from signalsmith_stretch_torch import spectral
+    name, tf, _ = cfg
+    eng = _stream_engine(cfg, DEVICE)
+    blocks = _record_blocks(eng, clip, tf, STREAM_CHECK_BLOCKS)
+    dbg = {}
+    for k, (carry, xs) in enumerate(blocks):
+        got = spectral.process_block(carry, xs, eng.controls, eng.flags,
+                                     eng.consts, dbg=dbg)
+        ref = spectral.process_block(carry, xs, eng.controls, eng.flags,
+                                     eng.consts, plain=True)
+        pairs = [(got[1], ref[1])] + list(zip(got[0][:6], ref[0][:6]))
+        if not (all(same_bits(a.contiguous(), b.contiguous())
+                    if a.dtype == torch.float32 else torch.equal(a, b)
+                    for a, b in pairs) and got[0].rng == ref[0].rng):
+            err = max(max_abs(a, b) for a, b in pairs)
+            raise SystemExit(f"{name}: process_block block {k} through the "
+                             f"kernels differs from the plain path, max abs "
+                             f"{err:g}")
+    print(f"{name}: process_block on the stream's first {len(blocks)} blocks "
+          f"(their carries and D spectra): kernels bit-equal to the plain "
+          f"path, output and every carry field")
+    return dbg, eng
+
+
+def one_row_timing(fn, plain_fn, nbytes, flops, plain_reps=PLAIN_REPS):
+    return dict(ms=cuda_ms(fn, KERNEL_REPS), ms_b2b=cuda_ms_b2b(
+        fn, KERNEL_REPS), plain_ms=cuda_ms(plain_fn, plain_reps),
+        bound=bound_ms(nbytes, flops))
+
+
+def check_stream_kernels(name, dbg, eng, clip):
+    """Each kernel of the stream's block at its shapes (one row) against
+    its plain version on the card, on the inputs of process_block's last
+    checked block: H (also with a third channel), A, G (or its two
+    entries under a custom map), F with the base estimated, and D on the
+    block's two frames of each channel.  Returns {kernel: numbers}."""
+    import torch
+    from signalsmith_stretch_torch import spectral, stft
+    from signalsmith_stretch_torch.ops import (block_sweep, dft, interp,
+                                               peaks, scan_ops)
+    out = {}
+    consts, longv = eng.consts, eng.consts.long_vertical_step
+    x = dbg["sweep"]
+    ch, B = x.pe.shape
+    # --- H, and H with a third channel (a copy of channel 0, scaled) ----
+    x3 = block_sweep.BlockSweepInputs(*x[:6], *[
+        torch.cat([v, v[:1] * 0.5]).contiguous() for v in x[6:]])
+    for xi in (x, x3):
+        got = block_sweep.block_sweep(xi, longv)
+        ref = block_sweep.block_sweep_plain(xi, longv)
+        if not torch.equal(torch.view_as_real(got).view(torch.int32),
+                           torch.view_as_real(ref).view(torch.int32)):
+            raise SystemExit(f"{name}: block_sweep ({xi.pe.shape[0]} "
+                             f"channels) differs from the plain version, max "
+                             f"abs {max_abs(got, ref):g}")
+    stamps = block_sweep.phase_stamps(x, longv).cpu().numpy()[0]
+    span_ms = (stamps[3] - stamps[2]) / 1e6
+    chain_ms = span_ms * stamps[1] / (stamps[0] + stamps[1])
+    # per bin: the six per-bin planes in, ct, pe, pi per channel in, the
+    # outputs out; per bin ~14 products and sums for the lead and ~12 per
+    # locked channel, two divisions and roots
+    h = one_row_timing(lambda: block_sweep.block_sweep(x, longv),
+                       lambda: block_sweep.block_sweep_plain(x, longv),
+                       B * (40 + 20 * ch + 8 * ch), B * (30 + 24 * ch))
+    h.update(max_abs_err=0.0, chain_ms=chain_ms,
+             cycles_a_bin=(stamps[0] + stamps[1]) / B,
+             load_share=stamps[0] / (stamps[0] + stamps[1]))
+    out["block_sweep"] = h
+    print(f"{name}: H block_sweep [{ch}, {B}] and [3, {B}]: bit-equal to the "
+          f"plain version; {h['ms']:.4f} ms a launch alone, {h['ms_b2b']:.4f} "
+          f"back to back, the chain with its inputs in shared memory "
+          f"{chain_ms:.4f} ms ({h['cycles_a_bin']:.0f} cycles a bin, loads "
+          f"{100 * h['load_share']:.1f}%), plain {h['plain_ms']:.1f} ms")
+    # --- A at one row ---------------------------------------------------
+    planes, pos_sets, stacked = dbg["interp"]
+    got, _ = interp.interp_multi(planes, pos_sets, pos=stacked)
+    ref, _ = interp.interp_multi_plain(planes, pos_sets)
+    if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+        raise SystemExit(f"{name}: interp_multi at one row differs from the "
+                         f"plain version")
+    rows, n, W0 = planes.shape
+    nout = sum(ns for _, ns, _ in pos_sets)
+    out["interp_multi"] = one_row_timing(
+        lambda: interp.interp_multi(planes, pos_sets, pos=stacked),
+        lambda: interp.interp_multi_plain(planes, pos_sets),
+        4 * (rows * n * W0 + rows * len(pos_sets) * B + rows * nout * B),
+        3 * rows * nout * B + 2 * rows * len(pos_sets) * B)
+    out["interp_multi"].update(max_abs_err=0.0, sets=len(pos_sets),
+                               planes=tuple(planes.shape))
+    # --- G (or its entries) at one row -----------------------------------
+    if "smoothed" in dbg:
+        energy, sm = dbg["energy"], dbg["smoothed"]
+        tf_d, ltf_d = dbg["shifts"]
+        if eng.flags.custom_map is None:
+            args = (energy, sm, tf_d, ltf_d, eng.controls, consts)
+            got = peaks.peaks_positions(*args)
+            ref = peaks.peaks_positions_plain(*args)
+            cpu = peaks.peaks_positions_plain(
+                *[a.cpu() if torch.is_tensor(a) else a for a in args])
+            key = "peaks_map"
+            fn = lambda: peaks.peaks_positions(*args)  # noqa: E731
+            plain_fn = lambda: peaks.peaks_positions_plain(*args)  # noqa
+        else:
+            fmap = eng.flags.custom_map
+            got = peaks.peaks_positions_custom(energy, sm, tf_d, ltf_d, fmap,
+                                               consts)
+            ref = peaks.peaks_positions_custom(energy, sm, tf_d, ltf_d, fmap,
+                                               consts, plain=True)
+            cpu = peaks.peaks_positions_custom(
+                energy.cpu(), sm.cpu(), tf_d.cpu(), ltf_d.cpu(), fmap, consts,
+                plain=True)
+            key = "peaks_split"
+            fn = lambda: peaks.peaks_positions_custom(  # noqa: E731
+                energy, sm, tf_d, ltf_d, fmap, consts)
+            plain_fn = lambda: peaks.peaks_positions_custom(  # noqa: E731
+                energy, sm, tf_d, ltf_d, fmap, consts, plain=True)
+        if not all(same_bits(g, r) and same_bits(g.cpu(), c)
+                   for g, r, c in zip(got, ref, cpu)):
+            raise SystemExit(f"{name}: G at one row differs from its plain "
+                             f"version")
+        out[key] = one_row_timing(fn, plain_fn, 4 * (2 * B + 2 + 4 * B),
+                                  30 * B)
+        out[key]["max_abs_err"] = 0.0
+    # --- F at one row (the base estimated) --------------------------------
+    if eng.flags.process_formants and eng.flags.formant_auto:
+        metric = dbg["energy_sum"]
+        got = scan_ops.top3_local_maxima(metric)
+        ref = spectral._top3_local_maxima(metric)
+        if not all(same_bits(g, r) for g, r in zip(got, ref)):
+            raise SystemExit(f"{name}: top3 at one row differs from the "
+                             f"plain version")
+        out["top3"] = one_row_timing(
+            lambda: scan_ops.top3_local_maxima(metric),
+            lambda: spectral._top3_local_maxima(metric), 4 * (B + 6), 6 * B)
+        out["top3"]["max_abs_err"] = 0.0
+    # --- D on one block's frames: [2 ch, block] ----------------------------
+    block, H = eng.cfg.block_samples, eng.cfg.interval_samples
+    c = torch.as_tensor(clip, device=DEVICE)
+    at = block + H + 4 * H
+    frames = torch.cat([c[:, at - block:at], c[:, at - H - block:at - H]])
+    basis = eng.basis
+    got = dft.analyze(frames, basis)
+    ref = stft.analyze_plain(frames, basis)
+    err = max_abs(got, ref)
+    peak = float(ref.abs().max())
+    if not err <= DFT_TOL * peak:
+        raise SystemExit(f"{name}: dft on [{frames.shape[0]}, {block}] "
+                         f"differs from the plain analysis by {err / peak:.3g}"
+                         f" of the peak")
+    N = basis.fft_samples
+    nF = frames.shape[0]
+    out["dft"] = one_row_timing(
+        lambda: dft.analyze(frames, basis),
+        lambda: stft.analyze_plain(frames, basis),
+        nF * (4 * block + 8 * basis.bands),
+        nF * 5 * N * (N.bit_length() - 1) // 2, KERNEL_REPS)
+    out["dft"]["max_abs_err"] = err
+    print(f"{name}: at one row, bit-equal to their plain versions: A "
+          f"{tuple(planes.shape)} x {len(pos_sets)} sets "
+          f"{out['interp_multi']['ms']:.4f} ms"
+          + "".join(f", {k} {v['ms']:.4f} ms" for k, v in out.items()
+                    if k in ("peaks_map", "peaks_split", "top3"))
+          + f"; D [{nF}, {block}] within {err / peak:.3g} of the peak, "
+          f"{out['dft']['ms']:.4f} ms")
+    return out
+
+
+def stream_vs_plain(cfg, clip):
+    """The first STREAM_GATE_SECONDS of the stream through the kernels on
+    the card against the plain path (the plain versions on the CPU), the
+    same calls: the output within 12 dB of the plain stream's own response
+    to a 1-ulp change of its input (up or down, the larger), band energies
+    within 3 dB; bit-equal passes outright.  Returns the description."""
+    name, tf, _ = cfg
+    kern, _ = _stream_calls(_stream_engine(cfg, DEVICE), clip, tf,
+                            STREAM_GATE_SECONDS)
+    k = np.concatenate(kern, 1)
+
+    def plain(x):
+        outs, _ = _stream_calls(_stream_engine(cfg, "cpu", plain=True), x, tf,
+                                STREAM_GATE_SECONDS)
+        return np.concatenate(outs, 1)
+
+    p = plain(clip)
+    if np.array_equal(k, p):
+        return f"first {STREAM_GATE_SECONDS:g} s bit-equal to the plain path"
+    sens = [rel_err_db(plain(np.nextafter(clip, way).astype(np.float32)), p)
+            for way in (np.inf, -np.inf)]
+    dev_db = rel_err_db(k, p)
+    band = np.abs(band_energy_db(k) - band_energy_db(p)).max()
+    if not (np.isfinite(k).all() and dev_db < max(sens) + 12.0
+            and band <= 3.0):
+        raise SystemExit(f"{name}: the first {STREAM_GATE_SECONDS:g} s "
+                         f"through the kernels {dev_db:.1f} dB from the "
+                         f"plain path (1-ulp sensitivity {sens[0]:.1f} / "
+                         f"{sens[1]:.1f} dB), band energies within "
+                         f"{band:.2f} dB")
+    return (f"first {STREAM_GATE_SECONDS:g} s {dev_db:.1f} dB from the plain "
+            f"path on the CPU, its 1-ulp sensitivity {sens[0]:.1f} (up) / "
+            f"{sens[1]:.1f} (down) dB, band energies within {band:.2f} dB")
+
+
+def run_stream(cfg, clip):
+    """The stream's main-path run through the library object: output_seek,
+    the 10 s clip in STREAM_CHUNK-sample output chunks, flush at rate 0;
+    launches by kernel counted from 0, synchronising calls counted under
+    torch.cuda.set_sync_debug_mode("warn"), inside the block loop and in
+    all.  Returns (launch counts, numbers, output)."""
+    import torch
+    import warnings
+    name, tf, _ = cfg
+    warm = _stream_object(cfg)                  # set-up: caches, constants
+    _stream_calls(warm, clip, tf, out_seconds=0.2)
+    s = _stream_object(cfg)
+    eng = s._stream()
+    loop_syncs = [0]
+    normal = eng._normal
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def counted(*a, **k):
+            n0 = len(caught)
+            r = normal(*a, **k)
+            loop_syncs[0] += len(caught) - n0
+            return r
+
+        eng._normal = counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.set_sync_debug_mode("warn")
+        reset_counters()
+        blocks0 = eng.blocks
+        try:
+            outs, times = _stream_calls(s, clip, tf)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            eng._normal = normal
+        counts = counters()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    blocks = eng.blocks - blocks0
+    want = expected_stream_launches(eng.flags, blocks)
+    if counts != want:
+        raise SystemExit(f"{name}: kernel launches {counts}, expected {want} "
+                         f"for {blocks} blocks")
+    out = np.concatenate(outs, 1)
+    if not np.isfinite(out).all():
+        raise SystemExit(f"{name}: output not finite")
+    calls = len(times)
+    wall = sum(times)
+    nums = dict(blocks=blocks, calls=calls, wall_ms=wall,
+                call_ms_median=statistics.median(times),
+                call_ms_p99=float(np.percentile(times, 99)),
+                block_ms=wall / blocks,
+                realtime=(clip.shape[1] / RATE) / (wall / 1e3),
+                syncs=syncs, loop_syncs=loop_syncs[0],
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches_a_block={k: v / blocks for k, v in counts.items()
+                                  if v})
+    print(f"{name}: {SECONDS:g} s stereo {RATE} Hz at {tf:g}x in {calls} "
+          f"calls of {STREAM_CHUNK} output samples (output_seek, process, "
+          f"flush at rate 0): {blocks} blocks, {out.shape[1]} samples; "
+          f"{wall:.1f} ms in all, a call median {nums['call_ms_median']:.3f} "
+          f"ms, p99 {nums['call_ms_p99']:.3f} ms, {nums['block_ms']:.3f} ms "
+          f"a block, realtime factor {nums['realtime']:.1f}x; launches a "
+          f"block {nums['launches_a_block']}; synchronising calls "
+          f"{syncs} in all ({syncs / calls:.2f} a call), "
+          f"{loop_syncs[0]} in the block loops ({loop_syncs[0] / blocks:.3f} "
+          f"a block); peak memory {nums['peak_gib']:.3f} GiB")
+    return counts, nums, out
+
+
+# the port's kernels by the names of their CUDA functions
+OWN_KERNELS = (("H", "block_sweep_kernel"), ("A", "interp_multi_kernel"),
+               ("D", "dft_kernel"), ("G", "peaks_"), ("C/E", "chain_kernel"),
+               ("F", "top3_kernel"))
+
+
+def stream_profile(cfg, clip, calls=48):
+    """Where a stream's time goes: `calls` process() calls of the stream
+    (after output_seek and as many calls again to warm up) under
+    torch.profiler.  Returns per block the wall ms, the card's busy ms
+    (kernels and copies), the idle share, each of the port's kernels'
+    device ms and PyTorch's own kernels (count, ms)."""
+    name, tf, _ = cfg
+    s = _stream_object(cfg)
+    eng = s._stream()
+    L = clip.shape[1]
+    seek_len = s.output_seek_length(np.float32(1 / tf))
+    s.output_seek(clip[:, :seek_len])
+    step = int(round(STREAM_CHUNK / tf))
+    chunks = [clip[:, seek_len + k * step:seek_len + (k + 1) * step]
+              for k in range(2 * calls)]
+    assert seek_len + 2 * calls * step <= L
+    for c in chunks[:calls]:
+        s.process(c, STREAM_CHUNK)
+    b0 = eng.blocks
+    _, wall, prof = profiled(lambda: [s.process(c, STREAM_CHUNK)
+                                      for c in chunks[calls:]])
+    blocks = eng.blocks - b0
+    ev = profiler_events(prof, "CUDA")
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    own = {k: sum(e.time_range.elapsed_us() for e in ev if sub in e.name)
+           / 1e3 / blocks for k, sub in OWN_KERNELS}
+    other = [e for e in ev if not any(sub in e.name for _, sub in OWN_KERNELS)
+             and "emcpy" not in e.name]
+    copies = [e for e in ev if "emcpy" in e.name]
+    out = dict(wall_ms=wall / blocks, busy_ms=busy / blocks,
+               idle=1 - busy / wall,
+               own_ms={k: v for k, v in own.items() if v},
+               torch_kernels=len(other) / blocks,
+               torch_ms=sum(e.time_range.elapsed_us() for e in other)
+               / 1e3 / blocks, copies_a_call=len(copies) / calls)
+    print(f"{name}: profile of {calls} calls, {blocks} blocks: a block "
+          f"{out['wall_ms']:.3f} ms of wall (under the profiler), the card "
+          f"busy {out['busy_ms']:.3f} ms, idle share {out['idle']:.3f}; "
+          f"device ms a block by kernel "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out["own_ms"].items())
+          + f"; PyTorch's kernels {out['torch_kernels']:.1f} a block, "
+          f"{out['torch_ms']:.3f} ms; copies {out['copies_a_call']:.1f} a "
+          f"call")
+    return out
+
+
+def check_streaming():
+    """Phase 8 for every stream: the main-path run, the kernels at the
+    stream's shapes, process_block and the first 0.5 s against the plain
+    path.  Returns (summed launch counts, {kernel: one-row numbers})."""
+    import torch
+    clip = make_corpus(1, 2, int(RATE * SECONDS), RATE, seed=5)[0]
+    launches, rows, outs = {}, {}, {}
+    for cfg in STREAMS:
+        name = cfg[0]
+        counts, nums, outs[name] = run_stream(cfg, clip)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        stream_profile(cfg, clip)
+        dbg, eng = check_stream_blocks(cfg, clip)
+        for k, v in check_stream_kernels(name, dbg, eng, clip).items():
+            rows.setdefault(k, {})[name] = v
+        print(f"{name}: {stream_vs_plain(cfg, clip)}")
+        del dbg, eng
+        torch.cuda.empty_cache()
+    a, b = (outs[c[0]] for c in STREAMS[1::2])
+    if not np.array_equal(a, b):
+        raise SystemExit(f"{STREAMS[3][0]}: stream differs from "
+                         f"{STREAMS[1][0]}'s")
+    print(f"{STREAMS[3][0]}: bit-identical to {STREAMS[1][0]}'s stream")
+    return launches, rows
+
+
 def main():
     import torch
     import signalsmith_stretch_torch  # noqa: F401  (fails outside a checkout)
@@ -1511,6 +2009,13 @@ def main():
             launches[k] += v
     check_cli()
     check_cli_dev()
+    t_stream = time.perf_counter()
+    counted, stream_rows = check_streaming()
+    for k, v in counted.items():
+        launches[k] += v
+    print(f"streaming phase: {time.perf_counter() - t_stream:.1f} s of "
+          f"{time.perf_counter() - t_start:.1f} s so far")
+    entries["block_sweep"] = stream_rows["block_sweep"][STREAMS[1][0]]
     table = []
     for name, source, replaces in KERNELS:
         e = entries[name]
@@ -1521,6 +2026,15 @@ def main():
                           bound_ms=e["bound"][0], bound_by=e["bound"][1],
                           library_ms=e.get("library_ms"),
                           chain_ms=e.get("chain_ms")))
+    # each kernel at the stream's shapes (one row), by stream
+    for t in table:
+        rows = stream_rows.get("peaks_split" if t["name"] == "peaks_runs"
+                               else t["name"], {})
+        if rows:
+            t["one_row"] = {
+                stream: {k: v for k, v in e.items() if k != "bound"}
+                | {"bound_ms": e["bound"][0], "bound_by": e["bound"][1]}
+                for stream, e in rows.items()}
     table[0]["random_sets"] = {
         name: {k: v for k, v in e.items() if k != "bound"}
         | {"bound_ms": e["bound"][0]} for name, e in random_interp.items()}

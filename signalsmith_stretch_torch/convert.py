@@ -1,4 +1,5 @@
-"""Carry a render's static state across as plain numpy arrays.
+"""Carry a render's static state, and a stream's state, across as plain
+numpy arrays.
 
 The system has no learned weights: its state is the static plan (schedule,
 frame indices, WOLA weight, silence plan, STFT basis, spectral constants)
@@ -7,16 +8,24 @@ flags.  `plan_to_arrays` flattens it into a dict of
 numpy arrays and scalars, reading attributes only, so it accepts the plan of
 either package; `plan_from_arrays` and `controls_from_arrays` rebuild the
 port's objects from such a dict.
+
+A stream's state (streaming.StreamState) goes across in the layout of the
+JAX package's `StreamingStretch.state_dict()`: `stream_state_to_arrays`
+and `stream_state_from_arrays`, so that a stream started in either
+package goes on in the other.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import schedule as sched_mod
 from .config import StretchConfig
 from .engine import ExactPlan, SilencePlan
-from .spectral import Controls, SpectralConsts, SpectralFlags
+from .spectral import (Controls, SpectralCarry, SpectralConsts,
+                       SpectralFlags)
 from .stft import StftBasis
+from .streaming import StreamState
 
 _CFG = ("channels", "block_samples", "interval_samples", "split_computation")
 _SCHED = ("in_samples", "out_samples", "valid", "timeline_len", "ring_len",
@@ -129,3 +138,58 @@ def controls_from_arrays(d: dict):
     not state: the port draws with its own prng unless one is given)."""
     return (Controls(*[_control(d["controls." + k]) for k in _CONTROLS]),
             SpectralFlags(*[bool(d["flags." + k]) for k in _FLAGS]))
+
+
+# ---------------------------------------------------------------------------
+# A stream's state
+# ---------------------------------------------------------------------------
+_STREAM_SCALARS = (("samples_since_last", np.int32),
+                   ("prev_input_offset", np.int32), ("did_seek", np.bool_),
+                   ("seek_time_factor", np.float32),
+                   ("silence_counter", np.int32),
+                   ("silence_first", np.bool_))
+
+
+def stream_state_to_arrays(state) -> dict:
+    """A port StreamState as the JAX package's state_dict lays it out: the
+    buffers as float32 arrays, the scalars as 0-d arrays of their JAX
+    dtypes, and "carry" a dict of the SpectralCarry fields (the key as
+    uint32[2]).  A JAX stream loads it with its carry as a SpectralCarry:
+    `d["carry"] = SpectralCarry(**d["carry"])`."""
+    c = state.carry
+    carry = {f: getattr(c, f).detach().cpu().numpy()
+             for f in ("input", "prev_input", "output", "pred_energy")}
+    for f in ("freq_est_weighted", "freq_est_weight"):
+        carry[f] = np.asarray(getattr(c, f).detach().cpu().numpy()[0],
+                              np.float32)
+    carry["rng"] = np.asarray(c.rng, np.uint32)
+    d = {"carry": carry}
+    for f in ("in_hist", "out_tail", "weight_tail"):
+        d[f] = getattr(state, f).detach().cpu().numpy()
+    for f, dtype in _STREAM_SCALARS:
+        d[f] = np.asarray(getattr(state, f), dtype)
+    return d
+
+
+def stream_state_from_arrays(d: dict, device="cpu"):
+    """A port StreamState on `device` from a state_dict of either package
+    (its "carry" a dict or a SpectralCarry of arrays)."""
+    c = d["carry"]
+    c = c._asdict() if hasattr(c, "_asdict") else dict(c)
+
+    def tensor(v, shape=None):
+        a = np.array(v, copy=True)
+        return torch.as_tensor(a if shape is None else a.reshape(shape),
+                               device=device)
+
+    carry = SpectralCarry(
+        *[tensor(c[f]) for f in ("input", "prev_input", "output",
+                                 "pred_energy")],
+        tensor(np.asarray(c["freq_est_weighted"], np.float32), 1),
+        tensor(np.asarray(c["freq_est_weight"], np.float32), 1),
+        tuple(int(w) for w in np.asarray(c["rng"]).ravel()))
+    scalars = {f: dtype(np.asarray(d[f])).item() for f, dtype in
+               _STREAM_SCALARS}
+    scalars["seek_time_factor"] = np.float32(d["seek_time_factor"])
+    return StreamState(carry=carry, **{f: tensor(d[f]) for f in (
+        "in_hist", "out_tail", "weight_tail")}, **scalars)

@@ -45,6 +45,10 @@ ENTRY = {
     "peaks_out": ("peaks", "sst_peaks_out", [_P] * 7 + [_I] * 4 + [_P]),
     "peaks_out_timed": ("peaks", "sst_peaks_out_timed",
                         [_P] * 7 + [_I] * 4 + [_P, _P]),
+    "block_sweep": ("block_sweep", "sst_block_sweep", [_P] * 10 + [_I] * 5
+                    + [_P]),
+    "block_sweep_timed": ("block_sweep", "sst_block_sweep_timed",
+                          [_P] * 10 + [_I] * 5 + [_P, _P]),
 }
 SOURCES = tuple(dict.fromkeys(source for source, _, _ in ENTRY.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

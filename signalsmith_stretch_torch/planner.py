@@ -158,9 +158,14 @@ def _random_time_factors(tf: np.ndarray, seeds, B: int,
 
 def _formant_ratio(metric: torch.Tensor, batch: int,
                    controls: spectral.Controls, flags: spectral.SpectralFlags,
-                   consts: spectral.SpectralConsts, plain: bool, dbg):
+                   consts: spectral.SpectralConsts, plain: bool, dbg,
+                   estimate=None):
     """The formant envelope ratio (:970-1036): metric [R, B] (the
-    cross-channel energy, rows block-major per clip) -> ratio [R, B]."""
+    cross-channel energy, rows block-major per clip) -> (ratio [R, B],
+    (freqEstimateWeighted, freqEstimateWeight) after each clip's last
+    block, each [batch], or None when no estimate runs).  `estimate`: the
+    two values before each clip's first block (default zeros, the
+    reference's reset), as a stream carries them from block to block."""
     R, B = metric.shape
     nB = R // batch
     dev = metric.device
@@ -181,9 +186,11 @@ def _formant_ratio(metric: torch.Tensor, batch: int,
         iir = scan_ops.iir_chain_plain if plain else scan_ops.iir_chain
         pe_est, weight = spectral._peak_estimate(*top3(metric))
         rows = torch.cat([pe_est.to(torch.float32) * weight, weight])
-        chains, _ = iir(rows.reshape(2 * batch, nB), zeros(2 * batch), 0.25,
-                        (False,))
+        init = zeros(2 * batch) if estimate is None else torch.cat(estimate)
+        chains, final = iir(rows.reshape(2 * batch, nB), init, 0.25,
+                            (False,))
         few, fw = chains[:batch], chains[batch:]
+        state = (final[:batch], final[batch:])
         if dbg is not None:
             dbg.update(freq_estimate_weighted=few, freq_weight=fw)
         freq_estimate = (few / (fw + float(f32(1e-30)))).reshape(R)
@@ -194,8 +201,10 @@ def _formant_ratio(metric: torch.Tensor, batch: int,
             given = torch.as_tensor(np.tile(base_band, batch), device=dev)
             freq_estimate = torch.where(use, given, freq_estimate)
     elif controls.automated:
+        state = None
         freq_estimate = torch.as_tensor(np.tile(base_band, batch), device=dev)
     else:
+        state = None
         freq_estimate = torch.full((R,), float(base_band),
                                    dtype=torch.float32, device=dev)
 
@@ -228,7 +237,7 @@ def _formant_ratio(metric: torch.Tensor, batch: int,
     if dbg is not None:
         dbg.update(metric=metric, freq_estimate=freq_estimate, env=env,
                    ratio=ratio)
-    return ratio
+    return ratio, state
 
 
 def _random_vote_positions(base, btf1, btf2, longv: int):
@@ -367,8 +376,8 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
     if flags.process_formants:
         # ---- formants (:970-1036): every later read of in_energy (the
         # interp rows, the unmapped prediction energies) sees the ratio ----
-        ratio = _formant_ratio(energy, batch, controls, flags, consts, plain,
-                               dbg if debug else None)
+        ratio, _ = _formant_ratio(energy, batch, controls, flags, consts,
+                                  plain, dbg if debug else None)
         in_energy = in_energy * ratio.reshape(batch, nB, 1, B)
 
     if flags.mapped:

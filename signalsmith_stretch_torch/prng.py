@@ -9,6 +9,10 @@ bits with plain torch integer ops, the same code on the CPU and on the card:
   the pair (0, seed mod 2**32).  A negative seed maps to its two's
   complement (-1 -> 0xFFFFFFFF), and a seed outside 32 bits keeps its low
   32 bits, as JAX does without 64-bit mode.
+- `split(k, num)`: jax.random.split with `jax_threefry_partitionable` (the
+  default): key i is the two output words of the hash of the count pair
+  (0, i) (prng.py `_threefry_split_foldlike`).  It runs on the host, on
+  Python ints, so a stream's per-block split launches nothing.
 - `threefry2x32`: the Threefry-2x32 hash, 20 rounds (prng.py
   `_threefry2x32_lowering`).
 - `random_bits`: with `jax_threefry_partitionable` (the default), the hash
@@ -40,13 +44,20 @@ def key(seed) -> tuple:
     return (0, int(seed) & M32)
 
 
+def split(k: tuple, num: int = 2) -> list:
+    """jax.random.split(k, num): `num` keys, each a pair of 32-bit words
+    (Python ints), computed on the host."""
+    return [tuple(threefry2x32(k, 0, i)) for i in range(int(num))]
+
+
 def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
     return ((x << d) & M32) | (x >> (32 - d))
 
 
 def threefry2x32(k: tuple, x0: torch.Tensor, x1: torch.Tensor):
     """Threefry-2x32 of the count words x0, x1 (int64 tensors holding 32-bit
-    values) under the key pair k: the two output words, int64."""
+    values, or Python ints) under the key pair k: the two output words,
+    of the same kind."""
     ks = (k[0] & M32, k[1] & M32, (k[0] ^ k[1] ^ _PARITY) & M32)
     x0 = (x0 + ks[0]) & M32
     x1 = (x1 + ks[1]) & M32

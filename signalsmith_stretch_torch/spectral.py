@@ -9,6 +9,7 @@ block rows.  All arithmetic is float32 to track the reference's
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, NamedTuple, Optional
 
@@ -17,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from . import prng
-from .config import StretchConfig
+from .config import MAX_CLEAN_STRETCH, NOISE_FLOOR, StretchConfig
 
 f32 = np.float32
 
@@ -373,3 +374,240 @@ def _peak_estimate(i0, v0, i1, v1, i2, v2):
     ok2 = c2 & (diff2 > div(pe, 8)) & (diff2 < div(pe * 7, 8))
     pe = torch.where(ok2, torch.remainder(pe, diff2.clamp(min=1)), pe)
     return pe, v2
+
+
+# ---------------------------------------------------------------------------
+# The block step of the streaming engine (signalsmith-stretch.h:633-813)
+# ---------------------------------------------------------------------------
+class SpectralCarry(NamedTuple):
+    """What a stream carries from block to block (JAX spectral.
+    SpectralCarry): tensors on the stream's device, and the PRNG key as two
+    32-bit words on the host, so that splitting it launches nothing."""
+    input: torch.Tensor        # [ch, B] complex64 (Band.input)
+    prev_input: torch.Tensor   # [ch, B] complex64 (Band.prevInput)
+    output: torch.Tensor       # [ch, B] complex64 (Band.output)
+    pred_energy: torch.Tensor  # [ch, B] float32 (Prediction.energy)
+    freq_est_weighted: torch.Tensor   # [1] float32 (:927)
+    freq_est_weight: torch.Tensor     # [1] float32 (:928)
+    rng: tuple                 # (word0, word1), prng.key(seed) at the start
+
+    @classmethod
+    def initial(cls, consts: SpectralConsts, seed: int = 0,
+                device="cpu") -> "SpectralCarry":
+        shape = (consts.channels, consts.bands)
+        z = torch.zeros(shape, dtype=torch.complex64, device=device)
+        zf = torch.zeros(shape, dtype=torch.float32, device=device)
+        s = torch.zeros(1, dtype=torch.float32, device=device)
+        return cls(z, z, z, zf, s, s, prng.key(seed))
+
+
+class BlockInputs(NamedTuple):
+    """One block's inputs (JAX spectral.BlockInputs); the schedule's values
+    are known on the host."""
+    spectrum: torch.Tensor       # [ch, B] complex64 (read if new_spectrum)
+    prev_spectrum: torch.Tensor  # [ch, B] complex64 (read if reanalyse)
+    new_spectrum: bool
+    reanalyse: bool
+    time_factor: np.float32
+
+
+# the smoothing's four passes: down, up, down, up (:816-848)
+SMOOTHING = (True, False, True, False)
+
+
+def _block_tables(consts: SpectralConsts, device) -> dict:
+    """Per-(config, device) constants of process_block, built once."""
+    return _block_tables_cached(consts.rotor.tobytes(), consts.bands,
+                                consts.long_vertical_step,
+                                torch.device(device))
+
+
+@functools.lru_cache(maxsize=8)
+def _block_tables_cached(rotor: bytes, B: int, longv: int,
+                         device: torch.device) -> dict:
+    b = torch.arange(B, device=device)
+    return dict(
+        rotor=torch.as_tensor(np.frombuffer(rotor, np.complex64).copy(),
+                              device=device),
+        b_f=b.to(torch.float32),
+        up1=(b + 1).clamp(max=B - 1), upl=(b + longv).clamp(max=B - 1),
+        has_up1=b < B - 1, has_upl=b < B - longv,
+        zero=torch.zeros(1, dtype=torch.float32, device=device),
+        czero=torch.zeros((), dtype=torch.complex64, device=device))
+
+
+def _sel(rows: torch.Tensor, mc: torch.Tensor) -> torch.Tensor:
+    """rows [ch, B] -> [B]: row mc[b] at each bin b."""
+    return torch.gather(rows, 0, mc[None])[0]
+
+
+def process_block(carry: SpectralCarry, xs: BlockInputs, controls: Controls,
+                  flags: SpectralFlags, consts: SpectralConsts,
+                  plain: bool = False, dbg: Optional[dict] = None):
+    """One spectral block (JAX spectral.process_block, in its order of
+    operations) -> (carry', output spectrum [ch, B] complex64).
+
+    Through the kernels: C (the smoothing) and G (peaks, output map and
+    the down-vote positions) for a mapped render, E and, with the base
+    estimated, F and C for formants, A (every lookup of the block in one
+    launch: the prediction at the input bins when mapped, and the votes)
+    and H (the bin sweep).  plain=True takes their plain versions on any
+    device.  Nothing in it waits for the card: every branch is decided by
+    the flags and the block's host values.  A `dbg` dict receives each
+    kernel's inputs (the card's checks call the kernels on them)."""
+    from . import planner
+    from .ops import block_sweep, interp, peaks, scan_ops
+    ch, B = consts.channels, consts.bands
+    longv = consts.long_vertical_step
+    dev = carry.output.device
+    t = _block_tables(consts, dev)
+    new = bool(xs.new_spectrum)
+
+    inp = xs.spectrum if new else carry.input
+    prev_in = xs.prev_spectrum if xs.reanalyse else carry.prev_input
+    output = carry.output
+    if new:
+        output = output * t["rotor"]
+        prev_in = prev_in * t["rotor"]
+    in_energy = inp.real * inp.real + inp.imag * inp.imag      # [ch, B]
+
+    tf = max(f32(xs.time_factor), f32(1 / MAX_CLEAN_STRETCH))
+    random_tf = bool(tf > f32(MAX_CLEAN_STRETCH))
+    ltf = f32(f32(longv) * tf)
+    if flags.mapped or flags.process_formants:
+        energy = in_energy[0]
+        for c in range(1, ch):
+            energy = energy + in_energy[c]
+        energy = energy[None]                                 # [1, B]
+
+    pos = None
+    if flags.mapped:
+        # smoothing (C), then peaks, output map and the positions input_bin,
+        # input_bin - tf and input_bin - longv*tf (G: :486-487 when the
+        # block is not randomised)
+        iir = scan_ops.iir_chain_plain if plain else scan_ops.iir_chain
+        sm, _ = iir(energy, t["zero"], consts.slew, SMOOTHING)
+        tf_d = torch.full((1,), float(tf), device=dev)
+        ltf_d = torch.full((1,), float(ltf), device=dev)
+        if flags.custom_map is not None:
+            pos, freq_grad = peaks.peaks_positions_custom(
+                energy, sm, tf_d, ltf_d, flags.custom_map, consts, plain)
+        else:
+            peaks_map = (peaks.peaks_positions_plain if plain
+                         else peaks.peaks_positions)
+            pos, freq_grad = peaks_map(energy, sm, tf_d, ltf_d, controls,
+                                       consts)
+        input_bin = pos[0, 0]
+        if dbg is not None:
+            dbg.update(energy=energy, smoothed=sm, shifts=(tf_d, ltf_d))
+    else:
+        input_bin = t["b_f"]
+
+    few, fw = carry.freq_est_weighted, carry.freq_est_weight
+    if flags.process_formants:
+        ratio, estimate = planner._formant_ratio(
+            energy, 1, controls, flags, consts, plain, None,
+            estimate=(few, fw))
+        in_energy = in_energy * ratio
+        if estimate is not None:
+            few, fw = estimate
+
+    # ---- the draws (:747-757): the split advances on every block, the
+    # draws are taken only where they are used --------------------------
+    rng, sub = prng.split(carry.rng)
+    if random_tf:
+        lo = torch.full((), float(f32(f32(2 * MAX_CLEAN_STRETCH) - tf)),
+                        device=dev)
+        hi = torch.full((), float(tf), device=dev)
+        btf1, btf2 = draw_uniform(flags, sub, (2, B), lo, hi)
+        vote_pos = [input_bin - btf1, input_bin - float(longv) * btf1,
+                    torch.roll(input_bin, -1) - btf2,
+                    torch.roll(input_bin, -longv) - float(longv) * btf2]
+    elif flags.mapped:
+        vote_pos = [pos[0, 1], pos[0, 2]]
+    else:
+        vote_pos = [input_bin - float(tf), input_bin - float(ltf)]
+
+    # ---- every lookup in one call (A): the prediction at input_bin of the
+    # input, prevInput and energy rows when mapped, and the votes of each
+    # channel's input, selected by the loudest channel below ------------
+    rows_list = [inp[c][None] for c in range(ch)]
+    specs = [(v[None], ch) for v in vote_pos]
+    if flags.mapped:
+        rows_list += ([prev_in[c][None] for c in range(ch)]
+                      + [in_energy[c][None] for c in range(ch)])
+        specs = [(input_bin[None], 3 * ch)] + specs
+    if flags.mapped and not random_tf:
+        stacked = pos                     # G's planes, as they lie
+        specs = [(pos[:, k], n) for k, (_, n) in enumerate(specs)]
+    else:
+        stacked = torch.stack([p for p, _ in specs], 1)
+        specs = [(stacked[:, k], n) for k, (_, n) in enumerate(specs)]
+    planes, pos_sets, kinds = interp.pack(rows_list, specs)
+    if plain:
+        results, _ = interp.interp_multi_plain(planes, pos_sets)
+    else:
+        results, _ = interp.interp_multi(planes, pos_sets, pos=stacked)
+    if dbg is not None:
+        dbg.update(interp=(planes, pos_sets, stacked), energy_sum=(
+            energy if flags.mapped or flags.process_formants else None))
+    looked = interp.unpack(results, specs, kinds)     # per set, [1, B] rows
+    if flags.mapped:
+        vals, *looked = looked
+    votes = [torch.cat(v, 0) for v in looked]           # per set, [ch, B]
+
+    # ---- preliminary prediction (:697-719) --------------------------------
+    if flags.mapped:
+        pred_input = torch.cat(vals[:ch], 0)
+        prev_interp = torch.cat(vals[ch:2 * ch], 0)
+        pred_energy = torch.cat(vals[2 * ch:], 0) * torch.clamp(freq_grad,
+                                                                min=0)
+    else:
+        pred_energy, pred_input, prev_interp = in_energy, inp, prev_in
+    phase = output * (pred_input * torch.conj(prev_interp))
+    out_prelim = planner._cdivr(
+        phase, torch.maximum(carry.pred_energy, pred_energy) + NOISE_FLOOR)
+
+    # ---- main prediction (:722-803) ---------------------------------------
+    mc = torch.argmax(pred_energy, 0)                    # first max wins
+    pe_max = _sel(pred_energy, mc)
+    pi_max = _sel(pred_input, mc)
+    if random_tf:
+        short_down, long_down, up_short, up_long = (_sel(v, mc)
+                                                    for v in votes)
+    else:
+        # both branches use the same factor: the up votes read the down
+        # lookups one (and longv) bins up, in this bin's loudest channel
+        short_down, long_down = _sel(votes[0], mc), _sel(votes[1], mc)
+        up_short = _sel(torch.roll(votes[0], -1, 1), mc)
+        up_long = _sel(torch.roll(votes[1], -longv, 1), mc)
+    short_twist = pi_max * torch.conj(short_down)
+    long_twist = pi_max * torch.conj(long_down)
+    pi_up1 = _sel(pred_input[:, t["up1"]], mc)
+    pi_upl = _sel(pred_input[:, t["upl"]], mc)
+    up_twist = pi_up1 * torch.conj(up_short)
+    up_long_twist = pi_upl * torch.conj(up_long)
+    out_up1 = _sel(out_prelim[:, t["up1"]], mc)
+    out_upl = _sel(out_prelim[:, t["upl"]], mc)
+    phase_up = (torch.where(t["has_up1"], out_up1 * torch.conj(up_twist),
+                            t["czero"])
+                + torch.where(t["has_upl"],
+                              out_upl * torch.conj(up_long_twist),
+                              t["czero"]))
+    ch_twist = pred_input * torch.conj(pi_max)[None]
+
+    sweep_in = block_sweep.BlockSweepInputs(
+        *[v.contiguous() for v in (short_twist, long_twist, phase_up, pe_max,
+                                   pi_max)],
+        mc.to(torch.int32),
+        *[v.contiguous() for v in (ch_twist, pred_energy, pred_input)])
+    if dbg is not None:
+        dbg["sweep"] = sweep_in
+    sweep = block_sweep.block_sweep_plain if plain else block_sweep.block_sweep
+    outputs = sweep(sweep_in, longv)
+
+    # ---- prevInput <- input (:806-812) ------------------------------------
+    carry2 = SpectralCarry(input=inp, prev_input=inp if new else prev_in,
+                           output=outputs, pred_energy=pred_energy,
+                           freq_est_weighted=few, freq_est_weight=fw, rng=rng)
+    return carry2, outputs

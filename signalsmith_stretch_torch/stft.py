@@ -77,16 +77,28 @@ def analyze_plain(frames: torch.Tensor, basis: StftBasis) -> torch.Tensor:
     return torch.fft.fft(z, dim=-1)[..., :basis.bands]
 
 
+@functools.lru_cache(maxsize=8)
+def _synthesis_consts(twist: bytes, window: bytes, device: torch.device):
+    """The twist's planes and the window on `device`, copied once per
+    (basis, device): a stream synthesises every block with them."""
+    tw = np.frombuffer(twist, np.complex64)
+    return tuple(torch.as_tensor(np.array(a, np.float32), device=device)
+                 for a in (tw.real, tw.imag,
+                           np.frombuffer(window, np.float32)))
+
+
 def synthesize(spectra: torch.Tensor, basis: StftBasis) -> torch.Tensor:
     """Inverse modified FFT + synthesis window: [..., bands] complex64 ->
     [..., block] f32, y[n] = 2*Re(ifft(pad(S))[n] * conj(twist[n])) * w[n]."""
-    dev = spectra.device
-    twist = torch.as_tensor(basis.twist, device=dev)
+    tw_r, tw_i, window = _synthesis_consts(
+        np.ascontiguousarray(basis.twist).tobytes(),
+        np.ascontiguousarray(basis.window, np.float32).tobytes(),
+        spectra.device)
     full = F.pad(spectra, (0, basis.fft_samples - basis.bands))
     u = torch.fft.ifft(full, dim=-1)
-    y = 2.0 * (u.real * twist.real + u.imag * twist.imag)
+    y = 2.0 * (u.real * tw_r + u.imag * tw_i)
     y = y[..., :basis.block_samples]
-    return y * torch.as_tensor(basis.window, device=dev)
+    return y * window
 
 
 def band_freqs(basis: StftBasis) -> np.ndarray:

@@ -258,15 +258,16 @@ def test_seed_and_random_engine(stereo_signal):
 
 
 def test_not_ported_methods_raise():
-    """The streaming methods are not ported yet (custom maps are:
-    tests/test_torch_custom_map.py)."""
+    """The streaming methods are ported (tests/test_torch_streaming.py);
+    a stream's batched quanta, process_many and process_many_live, are not
+    yet, and raise naming the ROADMAP."""
     s = SignalsmithStretch(device="cpu")
     s.preset_default(1, RATE)
-    for call in (lambda: s.process(np.zeros((1, 10)), 10),
-                 lambda: s.seek(np.zeros((1, 10)), 1.0),
-                 lambda: s.output_seek(np.zeros((1, 10))),
-                 lambda: s.flush(10), s.reset):
-        with pytest.raises(NotImplementedError, match="streaming"):
+    stream = s._stream()
+    for call in (lambda: stream.process_many(np.zeros((2, 1, 10)),
+                                             [1.0, 1.0], 10),
+                 lambda: stream.process_many_live(np.zeros((2, 1, 10)), 10)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
 
 

@@ -6,10 +6,11 @@ without JAX run them without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances.  Kernels A, B, C, E, F and G: bit equality.  They are built
+Tolerances.  Kernels A, B, C, E, F, G and H: bit equality.  They are built
 with --fmad=false and IEEE division and square root, so they round at the
 same points as the plain versions, which are written as separate float32
-PyTorch ops.  G (the peaks map) is also held to its plain version on a CPU
+PyTorch ops (H's in numpy on a CPU copy, with the fused multiply-adds of
+XLA's compiled scan, which H takes with __fmaf_rn).  G (the peaks map) is also held to its plain version on a CPU
 copy of its inputs, whose runs are summed bin-ascending as in the
 reference and in the JAX package on the CPU.  Kernel D, the analysis DFT,
 is one half-length complex FFT per frame (a mixed-radix Stockham FFT in
@@ -597,3 +598,116 @@ def test_planner_custom_map_launches(dev):
     st = peaks.out_stamps(peak_in, avg_freq, n_peaks, *dbg["shifts"],
                           e.shape[1], model.plan.consts)
     assert st.shape[1] == len(peaks.OUT_PHASES) + 3 and st.shape[0] > 0
+
+
+# ---------------------------------------------------------------------------
+# The streaming engine: kernel H and the block step on the card
+# ---------------------------------------------------------------------------
+def _sweep_block_inputs(ch, B, dev, seed=0):
+    from signalsmith_stretch_torch.ops import block_sweep
+    rng = np.random.default_rng(seed)
+
+    def c(*s):
+        return (rng.standard_normal(s)
+                + 1j * rng.standard_normal(s)).astype(np.complex64)
+
+    st, lt, pu, pim = c(B), c(B), c(B), c(B)
+    pem = rng.uniform(0, 1, B).astype(np.float32)
+    mc = rng.integers(0, ch, B).astype(np.int32)
+    ct, pi = c(ch, B), c(ch, B)
+    pe = rng.uniform(0, 1, (ch, B)).astype(np.float32)
+    pe[:, :5] = 0                              # silent bins
+    pem[:5] = 0
+    pu[10:20] *= np.float32(1e-9)              # weak lead phases
+    ct[:, 30:40] *= np.float32(1e-9)           # weak locked phases
+    return block_sweep.BlockSweepInputs(*[_t(a, dev) for a in (
+        st, lt, pu, pem, pim, mc, ct, pe, pi)])
+
+
+@pytest.mark.parametrize("ch,B", [(1, 4096), (2, 4096), (3, 4096), (2, 7),
+                                  (33, 1000), (64, 300)])
+def test_block_sweep_kernel_matches_plain(dev, ch, B):
+    """H against its plain version, bit for bit: one channel to more than
+    a warp's lanes, a block shorter than LV and than a tile."""
+    from signalsmith_stretch_torch.ops import block_sweep
+    x = _sweep_block_inputs(ch, B, dev, seed=ch)
+    got = block_sweep.block_sweep(x, 6)
+    ref = block_sweep.block_sweep_plain(x, 6)
+    assert got.shape == (ch, B) and got.device == x.pe.device
+    assert torch.equal(torch.view_as_real(got).view(torch.int32),
+                       torch.view_as_real(ref).view(torch.int32))
+    stamps = block_sweep.phase_stamps(x, 6)
+    assert stamps.shape == (1, len(block_sweep.PHASES) + 3)
+    assert int(stamps[0, 1]) > 0 and int(stamps[0, 3]) > int(stamps[0, 2])
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(semitones=5),
+                                dict(semitones=5, formant_semitones=3),
+                                dict(semitones=12, custom=True)],
+                         ids=["unmapped", "mapped", "formant_auto", "custom"])
+def test_stream_blocks_kernels_match_plain(dev, kw):
+    """process_block through the kernels against the plain path on the
+    card, on a stream's first blocks (their carries and D spectra): the
+    output and every carry field bit-equal; each block launches its
+    kernels once."""
+    cfg = ("stream", 1.25 if not kw else 1.0, kw)
+    clip = chip_smoke.make_corpus(1, 2, 48000, chip_smoke.RATE, seed=1)[0]
+    dbg, eng = chip_smoke.check_stream_blocks(cfg, clip)
+    assert dbg["sweep"].pe.shape == (2, 4096)
+    from signalsmith_stretch_torch import spectral
+    from signalsmith_stretch_torch.ops import dft
+    block, H = eng.cfg.block_samples, eng.cfg.interval_samples
+    c = _t(clip, dev)
+    chip_smoke.reset_counters()
+    specs = dft.analyze(torch.cat([c[:, H:H + block], c[:, :block]]),
+                        eng.basis)
+    xs = spectral.BlockInputs(specs[:2], specs[2:], True, True,
+                              np.float32(1))
+    spectral.process_block(spectral.SpectralCarry.initial(eng.consts, 0, dev),
+                           xs, eng.controls, eng.flags, eng.consts)
+    torch.cuda.synchronize()
+    want = chip_smoke.expected_stream_launches(eng.flags, 1)
+    want["dft"] = 1
+    assert chip_smoke.counters() == want
+
+
+def test_stream_on_card_matches_cpu(dev):
+    """An unmapped 1.0x stream through the library object on the card
+    against the same calls on the CPU (the plain versions): within -100
+    dB a call against the stream's energy (D rounds otherwise than the
+    CPU's FFT; the recursion is stable at 1.0x); no synchronising call
+    inside a call's block loop."""
+    import warnings
+    from signalsmith_stretch_torch import SignalsmithStretch
+    clip = chip_smoke.make_corpus(1, 2, 48000, chip_smoke.RATE, seed=2)[0]
+    outs = []
+    for device in ("cuda", "cpu"):
+        s = SignalsmithStretch(device=device)
+        s.preset_default(2, chip_smoke.RATE)
+        eng = s._stream()
+        normal, syncs = eng._normal, []
+
+        def counted(*a, _n=normal, **k):
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                r = _n(*a, **k)
+            syncs.append(sum("synchroniz" in str(x.message) for x in w))
+            return r
+
+        eng._normal = counted
+        if device == "cuda":
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True):   # the calls' copies
+                warnings.simplefilter("always")
+                o, _ = chip_smoke._stream_calls(s, clip, 1.0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs.append(o)
+        if device == "cuda":
+            assert sum(syncs) == 0, syncs
+    power = np.mean(np.concatenate(outs[1], 1).astype(np.float64) ** 2)
+    for g, w in zip(*outs):
+        assert g.shape == w.shape
+        err = np.mean((g.astype(np.float64) - w) ** 2) if g.size else 0.0
+        assert 10 * np.log10(err / power + 1e-30) < -100

@@ -126,3 +126,25 @@ def test_model_seeds_are_jax_batched_seeds(stereo_signal):
             got = dbg[name].numpy()[clip * nB:(clip + 1) * nB]
             np.testing.assert_array_equal(got.view(np.int32),
                                           want.view(np.int32))
+
+
+@pytest.mark.parametrize("seed", [0, 1, -1, 2 ** 31])
+def test_split_matches_jax(seed):
+    """prng.split is jax.random.split, word for word: two keys and three,
+    and along a chain of 64 splits that keeps the first key and draws from
+    the second (a stream's per-block `rng, sub = split(rng)`)."""
+    jk, k = jax.random.PRNGKey(seed), prng.key(seed)
+    assert k == tuple(int(v) for v in np.asarray(jk))
+    for num in (2, 3):
+        want = [tuple(int(v) for v in row)
+                for row in np.asarray(jax.random.split(jk, num))]
+        assert prng.split(k, num) == want
+    for _ in range(64):
+        jk, jsub = jax.random.split(jk)
+        k, sub = prng.split(k)
+        assert (k, sub) == (tuple(int(v) for v in np.asarray(jk)),
+                            tuple(int(v) for v in np.asarray(jsub)))
+    want = np.asarray(jax.random.uniform(jsub, (2, 9), jnp.float32,
+                                         minval=-1.5, maxval=3.0))
+    got = prng.uniform(sub, (2, 9), f32(-1.5), f32(3.0)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))

@@ -130,8 +130,9 @@ def test_default_device_is_cuda():
 
 def test_port_imports_no_jax():
     """Importing every module of the port (the library object, the CLI,
-    the dev CLI, the profiling utilities, the I/O and the draws among
-    them) leaves jax and the JAX package out of sys.modules."""
+    the dev CLI, the profiling utilities, the I/O, the draws, the
+    streaming engine and the block sweep among them) leaves jax and the
+    JAX package out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import signalsmith_stretch_torch as p\n"
@@ -142,7 +143,8 @@ def test_port_imports_no_jax():
         "('jax', 'jaxlib', 'signalsmith_stretch_tpu')]\n"
         "assert len(names) >= 16, names\n"
         "for n in ('api', 'cli', 'cli_dev', 'io', 'io.wav', 'prng',\n"
-        "          'utils', 'utils.profiling'):\n"
+        "          'utils', 'utils.profiling', 'streaming',\n"
+        "          'ops.block_sweep'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
