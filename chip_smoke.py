@@ -66,15 +66,23 @@ Phases, in order; any failure exits non-zero before the last line:
      (in all, and inside the block loops), ms a call (median, p99), ms a
      block, the realtime factor and peak memory; process_block through the
      kernels bit-equal to the plain path on the card on the stream's first
-     8 blocks; H (also with a third channel), A, G (or its split), F and D
-     at one row against their plain versions, timed, H's chain also from
-     its timed entry (`chain_ms`); the first 0.5 s through the kernels
+     8 blocks, and the share of their bins where the lead changes (down1
+     locked) and where mc[b-LV] != mc[b] (downl locked); H (also with a
+     third channel), A, G (or its split), F and D at one row against their
+     plain versions, timed, H's phases from its timed entry (`chain_ms`,
+     cycles a bin, the chain warp's waits on inputs and on the consumers)
+     and its dependency floor from the floor entry, one thread running the
+     lead recursion alone (`chain_floor_ms`); the first 0.5 s through the kernels
      against the plain path on the CPU, within 12 dB of the plain stream's
      own 1-ulp sensitivity, band energies within 3 dB;
   8. the kernel table as one JSON line, the nvidia-smi line, and the device
      line {"ok": true, "device": {...}} last.  A kernel's `ms` is the median
      of 20 launches, each alone between CUDA events (5 for B); `ms_b2b` the
      mean of 20 issued back to back, which hides the host's launch time.
+
+With `--block-sweep-floor` the script runs only H's floor entry (after
+the header and H's build); with `--prior-block-sweep FILE`, H against an
+earlier H built from FILE, in turns, on two streams' blocks.
 
 There is no CPU fallback: without CUDA the script fails.
 """
@@ -1648,10 +1656,11 @@ def check_stream_blocks(cfg, clip):
     name, tf, _ = cfg
     eng = _stream_engine(cfg, DEVICE)
     blocks = _record_blocks(eng, clip, tf, STREAM_CHECK_BLOCKS)
-    dbg = {}
+    dbg, mcs = {}, []
     for k, (carry, xs) in enumerate(blocks):
         got = spectral.process_block(carry, xs, eng.controls, eng.flags,
                                      eng.consts, dbg=dbg)
+        mcs.append(dbg["sweep"].max_ch)
         ref = spectral.process_block(carry, xs, eng.controls, eng.flags,
                                      eng.consts, plain=True)
         pairs = [(got[1], ref[1])] + list(zip(got[0][:6], ref[0][:6]))
@@ -1662,10 +1671,55 @@ def check_stream_blocks(cfg, clip):
             raise SystemExit(f"{name}: process_block block {k} through the "
                              f"kernels differs from the plain path, max abs "
                              f"{err:g}")
+    dbg["lead_changes"] = lead_change_shares(
+        torch.stack(mcs).cpu().numpy(), eng.consts.long_vertical_step)
     print(f"{name}: process_block on the stream's first {len(blocks)} blocks "
           f"(their carries and D spectra): kernels bit-equal to the plain "
           f"path, output and every carry field")
     return dbg, eng
+
+
+def lead_change_shares(mc, longv):
+    """How often H's chain must lock in place, over blocks' loudest
+    channels mc [blocks, B]: the share of bins b >= 1 with mc[b] !=
+    mc[b-1] (down1 is a locked output: a second makeOutput on the chain),
+    its least and largest share in a block, and the share of bins b >= LV
+    with mc[b-LV] != mc[b] (downl is a locked output, formed early)."""
+    d1 = mc[:, 1:] != mc[:, :-1]
+    dl = mc[:, longv:] != mc[:, :-longv]
+    per_block = d1.mean(1)
+    return dict(down1=float(d1.mean()), down1_min=float(per_block.min()),
+                down1_max=float(per_block.max()), downl=float(dl.mean()),
+                blocks=int(mc.shape[0]))
+
+
+def block_sweep_stamps(x, longv, reps=5):
+    """H's timed entry (never on the main path) `reps` times after one
+    warm-up; the run with the median span, as a dict: each phase's cycles
+    (block_sweep.PHASES), span_ms, and the chain's share of the chain
+    warp's cycles in ms (chain_ms)."""
+    from signalsmith_stretch_torch.ops import block_sweep
+    P = len(block_sweep.PHASES)
+    runs = [block_sweep.phase_stamps(x, longv)[0].cpu().numpy()
+            for _ in range(reps + 1)][1:]
+    st = sorted(runs, key=lambda r: r[P + 1] - r[P])[len(runs) // 2]
+    cyc = {k: int(v) for k, v in zip(block_sweep.PHASES, st[:P])}
+    warp = cyc["inputs_wait"] + cyc["chain"] + cyc["consumers_wait"]
+    span_ms = (st[P + 1] - st[P]) / 1e6
+    return dict(cyc, span_ms=span_ms,
+                chain_ms=span_ms * cyc["chain"] / max(warp, 1))
+
+
+def block_sweep_floor(x, reps=5):
+    """H's floor entry (one thread, the lead recursion alone, inputs in
+    registers) `reps` times after one warm-up: the median ms for x's B
+    bins and its cycles a bin."""
+    from signalsmith_stretch_torch.ops import block_sweep
+    B = x.pe.shape[1]
+    runs = [block_sweep.chain_floor(x)[0].tolist() for _ in range(reps + 1)]
+    ms, cyc = zip(*[((t1 - t0) / 1e6 * B / bins, c / bins)
+                    for c, t0, t1, bins in runs[1:]])
+    return statistics.median(ms), statistics.median(cyc)
 
 
 def one_row_timing(fn, plain_fn, nbytes, flops, plain_reps=PLAIN_REPS):
@@ -1699,24 +1753,36 @@ def check_stream_kernels(name, dbg, eng, clip):
             raise SystemExit(f"{name}: block_sweep ({xi.pe.shape[0]} "
                              f"channels) differs from the plain version, max "
                              f"abs {max_abs(got, ref):g}")
-    stamps = block_sweep.phase_stamps(x, longv).cpu().numpy()[0]
-    span_ms = (stamps[3] - stamps[2]) / 1e6
-    chain_ms = span_ms * stamps[1] / (stamps[0] + stamps[1])
+    stamps = block_sweep_stamps(x, longv)
+    floor_ms, floor_cyc = block_sweep_floor(x)
+    shares = dbg["lead_changes"]
     # per bin: the six per-bin planes in, ct, pe, pi per channel in, the
     # outputs out; per bin ~14 products and sums for the lead and ~12 per
     # locked channel, two divisions and roots
     h = one_row_timing(lambda: block_sweep.block_sweep(x, longv),
                        lambda: block_sweep.block_sweep_plain(x, longv),
                        B * (40 + 20 * ch + 8 * ch), B * (30 + 24 * ch))
-    h.update(max_abs_err=0.0, chain_ms=chain_ms,
-             cycles_a_bin=(stamps[0] + stamps[1]) / B,
-             load_share=stamps[0] / (stamps[0] + stamps[1]))
+    h.update(max_abs_err=0.0, chain_ms=stamps["chain_ms"],
+             cycles_a_bin=stamps["chain"] / B,
+             stamps={k: stamps[k] for k in block_sweep.PHASES},
+             span_ms=stamps["span_ms"], chain_floor_ms=floor_ms,
+             floor_cycles_a_bin=floor_cyc, lead_changes=shares)
     out["block_sweep"] = h
     print(f"{name}: H block_sweep [{ch}, {B}] and [3, {B}]: bit-equal to the "
           f"plain version; {h['ms']:.4f} ms a launch alone, {h['ms_b2b']:.4f} "
-          f"back to back, the chain with its inputs in shared memory "
-          f"{chain_ms:.4f} ms ({h['cycles_a_bin']:.0f} cycles a bin, loads "
-          f"{100 * h['load_share']:.1f}%), plain {h['plain_ms']:.1f} ms")
+          f"back to back, plain {h['plain_ms']:.1f} ms; timed entry span "
+          f"{stamps['span_ms']:.4f} ms, the chain {stamps['chain_ms']:.4f} ms "
+          f"({h['cycles_a_bin']:.1f} cycles a bin), the chain warp waiting "
+          f"{stamps['inputs_wait']} cycles on inputs and "
+          f"{stamps['consumers_wait']} on the consumers, the helpers "
+          f"staging {stamps['helpers_stage']}, forming outputs "
+          f"{stamps['helpers_out']}, waiting for leads "
+          f"{stamps['helpers_idle']} cycles; chain_floor_ms {floor_ms:.4f} "
+          f"({floor_cyc:.1f} cycles a bin); lead changes in the first "
+          f"{shares['blocks']} blocks: down1 {100 * shares['down1']:.1f}% of "
+          f"bins ({100 * shares['down1_min']:.1f}-"
+          f"{100 * shares['down1_max']:.1f}% a block), downl "
+          f"{100 * shares['downl']:.1f}%")
     # --- A at one row ---------------------------------------------------
     planes, pos_sets, stacked = dbg["interp"]
     got, _ = interp.interp_multi(planes, pos_sets, pos=stacked)
@@ -1994,9 +2060,104 @@ def check_streaming():
     return launches, rows
 
 
+def random_sweep_inputs(ch, B, seed=0):
+    """H's inputs on the card, random from a seed (a block's shapes)."""
+    import torch
+    from signalsmith_stretch_torch.ops import block_sweep
+    rng = np.random.default_rng(seed)
+
+    def c(*s):
+        return (rng.standard_normal(s)
+                + 1j * rng.standard_normal(s)).astype(np.complex64)
+
+    arrs = (c(B), c(B), c(B), rng.uniform(0, 1, B).astype(np.float32), c(B),
+            rng.integers(0, ch, B).astype(np.int32), c(ch, B), rng.uniform(
+                0, 1, (ch, B)).astype(np.float32), c(ch, B))
+    return block_sweep.BlockSweepInputs(*[torch.as_tensor(a, device=DEVICE)
+                                          for a in arrs])
+
+
+def floor_only():
+    """`--block-sweep-floor`: build H's source and print its floor entry
+    on a stream block's shapes (2 channels, 4096 bins), nothing else."""
+    from signalsmith_stretch_torch.ops import _build
+    header()
+    secs, log = _build.build(["block_sweep"]).get("block_sweep", (0.0, ""))
+    usage = [ln.strip() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln or "entry function" in ln]
+    print(f"built csrc/block_sweep.cu in {secs:.1f} s: {'; '.join(usage)}")
+    x = random_sweep_inputs(2, 4096)
+    ms, cyc = block_sweep_floor(x)
+    print(f"chain_floor_ms {ms:.4f} for 4096 bins ({cyc:.1f} cycles a bin)")
+
+
+def prior_block_sweep(path):
+    """`--prior-block-sweep PATH`: H against an earlier H, its source at
+    PATH with the same C entry `sst_block_sweep` (the one-warp H: tiles
+    of up to 256 bins of every channel's inputs and a ring of outputs in
+    shared memory, its tile and smem as its own tile_bins gave them), on
+    the last checked block of the 1.25x and pitch+12 streams: both
+    bit-equal to the plain version, then timed in turns (earlier, new,
+    new, earlier), alone and back to back.  Prints one JSON line a
+    stream."""
+    import ctypes
+    import torch
+    from signalsmith_stretch_torch.ops import _build, block_sweep
+    header()
+    build_kernels()
+    so = os.path.join(ROOT, "build", "prior", "libblock_sweep_prior.so")
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, path],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(so).sst_block_sweep
+    fn.argtypes, fn.restype = _build.ENTRY["block_sweep"][2], ctypes.c_int
+    clip = make_corpus(1, 2, int(RATE * SECONDS), RATE, seed=5)[0]
+    for cfg in STREAMS[:2]:
+        dbg, eng = check_stream_blocks(cfg, clip)
+        x, longv = dbg["sweep"], eng.consts.long_vertical_step
+        ch, B = x.pe.shape
+        tile = 256
+        while 8 * (longv + 1) * ch + tile * (40 + 20 * ch) > \
+                block_sweep.SMEM_MAX:
+            tile -= 32
+        smem = 8 * (longv + 1) * ch + tile * (40 + 20 * ch)
+
+        def prior():
+            out = torch.empty((ch, B), dtype=torch.complex64, device=DEVICE)
+            _build.check(fn(*[t.data_ptr() for t in x], out.data_ptr(), ch,
+                            B, longv, tile, smem,
+                            torch.cuda.current_stream().cuda_stream),
+                         "the earlier block sweep")
+            return out
+
+        def new():
+            return block_sweep.block_sweep(x, longv)
+
+        ref = block_sweep.block_sweep_plain(x, longv)
+        for what, f in (("earlier", prior), ("new", new)):
+            if not same_bits(torch.view_as_real(f()),
+                             torch.view_as_real(ref)):
+                raise SystemExit(f"{cfg[0]}: the {what} H differs from the "
+                                 f"plain version")
+        turns = []
+        for what, f in (("earlier", prior), ("new", new), ("new", new),
+                        ("earlier", prior)):
+            turns.append((what, cuda_ms(f, KERNEL_REPS),
+                          cuda_ms_b2b(f, KERNEL_REPS)))
+        res = {w: dict(ms=[t[1] for t in turns if t[0] == w],
+                       ms_b2b=[t[2] for t in turns if t[0] == w])
+               for w in ("earlier", "new")}
+        print(json.dumps({"stream": cfg[0], "shape": [ch, B],
+                          "lead_changes": dbg["lead_changes"]} | res))
+
+
 def main():
     import torch
     import signalsmith_stretch_torch  # noqa: F401  (fails outside a checkout)
+    if sys.argv[1:] == ["--block-sweep-floor"]:
+        return floor_only()
+    if sys.argv[1:2] == ["--prior-block-sweep"] and len(sys.argv) == 3:
+        return prior_block_sweep(sys.argv[2])
     t_start = time.perf_counter()
     header()
     build_kernels()
@@ -2025,7 +2186,8 @@ def main():
                           ms_b2b=e["ms_b2b"], plain_ms=e["plain_ms"],
                           bound_ms=e["bound"][0], bound_by=e["bound"][1],
                           library_ms=e.get("library_ms"),
-                          chain_ms=e.get("chain_ms")))
+                          chain_ms=e.get("chain_ms"),
+                          chain_floor_ms=e.get("chain_floor_ms")))
     # each kernel at the stream's shapes (one row), by stream
     for t in table:
         rows = stream_rows.get("peaks_split" if t["name"] == "peaks_runs"

@@ -49,6 +49,8 @@ ENTRY = {
                     + [_P]),
     "block_sweep_timed": ("block_sweep", "sst_block_sweep_timed",
                           [_P] * 10 + [_I] * 5 + [_P, _P]),
+    "block_sweep_floor": ("block_sweep", "sst_block_sweep_floor",
+                          [_P] * 5 + [_I] * 2 + [_P] * 3),
 }
 SOURCES = tuple(dict.fromkeys(source for source, _, _ in ENTRY.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

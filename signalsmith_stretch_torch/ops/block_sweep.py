@@ -35,9 +35,9 @@ from . import _build
 f32 = np.float32
 launches = 0          # kernel launches of block_sweep
 NOISE_FLOOR = np.float32(1e-15)
-# the kernel's tile of bins staged in shared memory, and its shared memory
-# ceiling on this card (csrc/block_sweep.cu)
-TILE_MAX, TILE_MIN = 256, 32
+# the kernel's tile of bins, its stage slots (csrc/block_sweep.cu TILE,
+# SLOTS), and the shared memory ceiling on this card
+TILE, SLOTS = 32, 3
 SMEM_MAX = 227 * 1024
 
 
@@ -183,21 +183,22 @@ def block_sweep_plain(x: BlockSweepInputs, longv: int) -> torch.Tensor:
                          torch.from_numpy(out_i)).to(x.pe.device)
 
 
-def tile_bins(ch: int, longv: int) -> tuple:
+def tile_bins(longv: int) -> tuple:
     """The kernel's tile of bins and its dynamic shared memory in bytes:
-    the ring of the last LV + 1 outputs of every channel and, per bin of the
-    tile, the six per-bin inputs (40 bytes) and each channel's ct, pi and
-    pe (20 bytes a channel).  The largest tile of TILE_MIN..TILE_MAX bins
-    (a multiple of 32) that fits in SMEM_MAX; raises if none does."""
-    ring = 8 * (longv + 1) * ch
-    tile = TILE_MAX
-    while tile >= TILE_MIN:
-        smem = ring + tile * (40 + 20 * ch)
-        if smem <= SMEM_MAX:
-            return tile, smem
-        tile -= 32
-    raise ValueError(f"block_sweep: {ch} channels do not fit the kernel's "
-                     f"shared memory ({SMEM_MAX} bytes)")
+    SLOTS stage slots of TILE bins, each bin two 64-byte records (the
+    chain's and the early lock's, a record's pad between them), its lead
+    (8 bytes) and loudest channel (4); then the leads' ring, H x 32 lanes
+    x 8 bytes for H the least power of two above LV.  Any channel count:
+    the helper warps read every channel's inputs from device memory.
+    Raises if the ring does not fit SMEM_MAX."""
+    ring = 2
+    while ring <= longv:
+        ring *= 2
+    smem = SLOTS * (TILE * (2 * 64 + 8 + 4) + 64) + ring * 32 * 8
+    if smem > SMEM_MAX:
+        raise ValueError(f"block_sweep: LV {longv} does not fit the kernel's "
+                         f"shared memory ({SMEM_MAX} bytes)")
+    return TILE, smem
 
 
 def _check(x: BlockSweepInputs, longv: int):
@@ -219,7 +220,7 @@ def _check(x: BlockSweepInputs, longv: int):
 
 def _launch(entry, x: BlockSweepInputs, longv: int, *extra):
     ch, B = x.pe.shape
-    tile, smem = tile_bins(ch, longv)
+    tile, smem = tile_bins(longv)
     out = torch.empty((ch, B), dtype=torch.complex64, device=x.pe.device)
     rc = _build.entry(entry)(
         *[t.data_ptr() for t in x], out.data_ptr(), ch, B, longv, tile,
@@ -230,7 +231,8 @@ def _launch(entry, x: BlockSweepInputs, longv: int, *extra):
 
 def block_sweep(x: BlockSweepInputs, longv: int) -> torch.Tensor:
     """Kernel wrapper (H): one block's sweep inputs -> outputs [ch, B]
-    complex64, one launch of one warp."""
+    complex64, one launch of one CTA (the chain warp and three helper
+    warps)."""
     global launches
     if x.pe.device.type == "cpu":
         return block_sweep_plain(x, longv)
@@ -240,9 +242,12 @@ def block_sweep(x: BlockSweepInputs, longv: int) -> torch.Tensor:
     return out
 
 
-# the timed entry's phases (csrc/block_sweep.cu STAMP): the tiles' loads
-# into shared memory, and the dependent chain over the bins
-PHASES = ("load", "chain")
+# the timed entry's phases (csrc/block_sweep.cu sst_block_sweep_timed): the
+# chain warp waiting for staged inputs, running its bins, and the helpers'
+# tail after its last bin (the chain waiting on the consumers); the
+# helpers staging tiles, forming the outputs, and waiting for leads
+PHASES = ("inputs_wait", "chain", "consumers_wait", "helpers_stage",
+          "helpers_out", "helpers_idle")
 
 
 def phase_stamps(x: BlockSweepInputs, longv: int) -> torch.Tensor:
@@ -254,4 +259,28 @@ def phase_stamps(x: BlockSweepInputs, longv: int) -> torch.Tensor:
     stamps = torch.zeros((1, len(PHASES) + 3), dtype=torch.int64,
                          device=x.pe.device)
     _launch("block_sweep_timed", x, longv, stamps.data_ptr())
+    return stamps
+
+
+FLOOR_UNROLL = 8      # csrc/block_sweep.cu U
+
+
+def chain_floor(x: BlockSweepInputs) -> torch.Tensor:
+    """The dependency floor of H's work on this card (entry
+    `sst_block_sweep_floor`, never on the main path): one thread runs only
+    the lead recursion, lead = makeOutput(pe_max, pi_max, (pu + lead*st) +
+    h*lt) with h the lead FLOOR_UNROLL bins earlier, over B bins rounded
+    up to FLOOR_UNROLL, its inputs (FLOOR_UNROLL bins of x's planes,
+    spread over the block) in registers.  Returns [1, 4] int64 on the card: the cycles,
+    the start and end on the global timer (ns) and the bins run."""
+    _check(x, 1)
+    B = x.pe.shape[1]
+    bins = -(-B // FLOOR_UNROLL) * FLOOR_UNROLL
+    last = torch.empty(1, dtype=torch.complex64, device=x.pe.device)
+    stamps = torch.zeros((1, 4), dtype=torch.int64, device=x.pe.device)
+    rc = _build.entry("block_sweep_floor")(
+        *[t.data_ptr() for t in x[:5]], B, bins, last.data_ptr(),
+        stamps.data_ptr(),
+        torch.cuda.current_stream(x.pe.device).cuda_stream)
+    _build.check(rc, "block sweep entry 'block_sweep_floor'")
     return stamps

@@ -33,6 +33,7 @@ from signalsmith_stretch_torch.ops import block_sweep  # noqa: E402
 from signalsmith_stretch_tpu import spectral as jspectral  # noqa: E402
 from signalsmith_stretch_tpu import stft as jstft  # noqa: E402
 from signalsmith_stretch_tpu.config import StretchConfig as JConfig  # noqa
+from test_torch_cuda import max_ch_pattern  # noqa: E402
 
 f32 = np.float32
 LV = 6
@@ -69,6 +70,166 @@ def test_block_sweep_plain_matches_jax(ch):
     assert got.shape == want.shape == (ch, 1024)
     for part in (np.real, np.imag):
         np.testing.assert_array_equal(part(got).view(np.int32),
+                                      part(want).view(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# kernel H's schedule (csrc/block_sweep.cu) replayed on the CPU
+# ---------------------------------------------------------------------------
+def schedule_model(args, longv, tile=block_sweep.TILE):
+    """Kernel H's order of operations in numpy float32: the helpers stage
+    each tile's records (the chain's, with the inputs of a lock at a lead
+    change, and the early lock's; ones where no lane uses a value); lane 0
+    carries the lead across bins and locks in place only where mc[b] !=
+    mc[b-1]; lanes 1-31 form the early lock of bin b+2 from the lead of
+    b+2-LV (through -0 additions, which keep every bit), which lane 0
+    takes by a shuffle a bin later and uses at b+2 (LV >= 4; below that
+    lane 0 forms downl in place); every lane keeps the leads in a ring of
+    H slots (H the least power of two above LV, zeros at first), written
+    and read as the kernel does; the helpers then form every channel's
+    outputs of the tile from its leads.  Returns [ch, B] complex64."""
+    st, lt, pu, pem, pim, mc, ct, pe, pi = args
+    ch, B = pe.shape
+    cm, mo = block_sweep._cmul1, block_sweep._make_output1
+    zero, nzero = (f32(0), f32(0)), (f32(-0.0), f32(-0.0))
+    one = (f32(1), f32(0))
+    early = longv >= 4
+    H = 2
+    while H <= longv:
+        H *= 2
+    off = 3 - longv if early else 1 - longv
+
+    def c2(z):
+        return f32(z.real), f32(z.imag)
+
+    def stage(b):
+        m = mc[b]
+        chg1 = b > 0 and mc[b - 1] != m
+        chgl = not early and b >= longv and mc[b - longv] != m
+        rec = dict(tw=c2(st[b]) if b > 0 else zero, pu=c2(pu[b]),
+                   f=c2(pim[b]), pe=pem[b],
+                   lt=c2(lt[b]) if b >= longv else zero, ctc=one, pic=one,
+                   pec=f32(1), flag=int(chg1) | int(chgl) << 1)
+        if chg1:
+            rec.update(ctc=c2(ct[m, b - 1]), pic=c2(pi[m, b - 1]),
+                       pec=pe[m, b - 1])
+        erec = dict(tw=one, f=one, pe=f32(1), pu=nzero, same=True)
+        k = None
+        if early and longv <= b + 2 < B:
+            k = (mc[b + 2], b + 2 - longv)
+            erec["same"] = mc[b + 2 - longv] == k[0]
+        elif not early and b >= longv:
+            k = (m, b - longv)
+        if k is not None:
+            erec.update(tw=c2(ct[k]), f=c2(pi[k]), pe=pe[k])
+        return rec, erec
+
+    with np.errstate(all="ignore"):
+        # o: lane 0's lead of the previous bin; L: the lanes' ring read (the
+        # early lock's lead, or lane 0's lead of b-LV); dlv: lane 1's result
+        o, L, dl, dlv = zero, zero, zero, zero
+        ring = [zero] * H
+        out = np.zeros((ch, B), np.complex64)
+        for base in range(0, B, tile):
+            n = min(tile, B - base)
+            staged = [stage(base + i) for i in range(n)]
+            leads = np.zeros(n, np.complex64)
+            for i, (r, e) in enumerate(staged):
+                b = base + i
+                lnew, x = o, dlv                      # the two shuffles
+                # lane 0: down1 carried, locked in place at a lead change
+                d1 = o
+                if r["flag"] & 1:
+                    d1 = mo(r["pec"], *r["pic"], *cm(*o, *r["ctc"]))
+                if not early:
+                    dl = o if longv == 1 else L
+                    if r["flag"] & 2:
+                        dl = mo(e["pe"], *e["f"], *cm(*dl, *e["tw"]))
+                v2 = cm(*dl, *r["lt"])
+                v1 = cm(*d1, *r["tw"])
+                o0 = mo(r["pe"], *r["f"], (r["pu"][0] + v1[0]) + v2[0],
+                        (r["pu"][1] + v1[1]) + v2[1])
+                leads[i] = complex(*o0)
+                # lanes 1-31: the early lock of bin b+2 from lead b+2-LV
+                v1 = cm(*L, *e["tw"])
+                o1 = mo(e["pe"], *e["f"], (e["pu"][0] + v1[0]) + nzero[0],
+                        (e["pu"][1] + v1[1]) + nzero[1])
+                dlv = L if e["same"] else o1
+                o = o0
+                ring[(b - 1) % H] = lnew
+                L = ring[(b + off) % H]
+                if early:
+                    dl = x
+            # the helpers: every channel's outputs of the tile
+            sl = slice(base, base + n)
+            lr, li = leads.real[None], leads.imag[None]
+            tr, ti = block_sweep._cmul(lr, li, ct[:, sl].real, ct[:, sl].imag)
+            kr, ki = block_sweep._make_output(pe[:, sl], pi[:, sl].real,
+                                              pi[:, sl].imag, tr, ti)
+            lead = np.arange(ch)[:, None] == mc[None, sl]
+            out.real[:, sl] = np.where(lead, lr, kr)
+            out.imag[:, sl] = np.where(lead, li, ki)
+    return out
+
+
+SCHED_B = 600
+
+
+_JAX_SWEEPS = {}
+
+
+def _jax_sweep(args, ch, longv):
+    if (ch, longv) not in _JAX_SWEEPS:
+        _JAX_SWEEPS[ch, longv] = jax.jit(
+            lambda *a: jspectral._sweep_scan(*a, ch=ch, longv=longv))
+    return np.asarray(_JAX_SWEEPS[ch, longv](*args))
+
+
+def _signed_zero_inputs(ch, B, seed):
+    """_random_sweep_inputs with lone zero components, whose signs reach
+    the outputs: pu = (-0, y) at b = 0 and at 40-59; weak leads (b in
+    100-199) whose fallback pi_max is real, so the lead is (r, +-0), with
+    every third bin's ct and the lock inputs imaginary, so a locked phase
+    is (+-0, y)."""
+    st, lt, pu, pem, pim, mc, ct, pe, pi = _random_sweep_inputs(ch, B, seed)
+    for z in (pu[:1], pu[40:60]):
+        z.real = f32(-0.0)
+    pim[100:200].imag = 0
+    ct[:, 100:200:3].real = 0
+    ct[:, 101:200:3].real = f32(-0.0)
+    return [st, lt, pu, pem, pim, mc, ct, pe, pi]
+
+
+SCHED_CASES = ([(p, c, LV) for p in ("constant", "every", "run2", "run5",
+                                     "run6", "run7", "run300", "early",
+                                     "tile_edge", "random")
+                for c in (2, 3)]
+               + [("constant", 1, LV), ("random", 33, LV),
+                  ("every", 33, LV)]
+               + [("random", 3, lv) for lv in (1, 2, 3, 4)]
+               + [("early", 2, lv) for lv in (3, 4)])
+
+
+@pytest.mark.parametrize("pattern,ch,longv", SCHED_CASES,
+                         ids=[f"{p}-ch{c}-lv{v}" for p, c, v in SCHED_CASES])
+def test_block_sweep_schedule_model(pattern, ch, longv):
+    """Kernel H's schedule (`schedule_model`) bit-equal to the plain
+    version and to JAX's compiled `_sweep_scan`, over patterns of the
+    loudest channel: constant, a change at every bin, runs of 2, 5, 6, 7
+    and 300 bins, a change at each of b = 1..LV, changes across tile
+    edges, random; 1, 2, 3 and 33 channels; LV 6 (the default preset's),
+    4 (the shortest early lead) and 1-3 (downl locked in place)."""
+    args = _signed_zero_inputs(ch, SCHED_B, seed=ch + 7 * longv)
+    args[5] = max_ch_pattern(pattern, ch, SCHED_B, longv)
+    got = schedule_model(args, longv)
+    want = _jax_sweep(args, ch, longv)
+    x = block_sweep.BlockSweepInputs(*[torch.as_tensor(a) for a in args])
+    plain = block_sweep.block_sweep_plain(x, longv).numpy()
+    assert got.shape == want.shape == (ch, SCHED_B)
+    for part in (np.real, np.imag):
+        np.testing.assert_array_equal(part(got).view(np.int32),
+                                      part(want).view(np.int32))
+        np.testing.assert_array_equal(part(plain).view(np.int32),
                                       part(want).view(np.int32))
 
 

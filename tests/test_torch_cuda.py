@@ -624,21 +624,77 @@ def _sweep_block_inputs(ch, B, dev, seed=0):
         st, lt, pu, pem, pim, mc, ct, pe, pi)])
 
 
-@pytest.mark.parametrize("ch,B", [(1, 4096), (2, 4096), (3, 4096), (2, 7),
-                                  (33, 1000), (64, 300)])
-def test_block_sweep_kernel_matches_plain(dev, ch, B):
+def max_ch_pattern(name, ch, B, longv):
+    """Loudest-channel patterns for kernel H's cases (also the CPU
+    schedule model's, tests/test_torch_block.py)."""
+    b = np.arange(B)
+    if name == "constant":
+        mc = np.full(B, ch - 1)
+    elif name == "every":
+        mc = b % ch
+    elif name.startswith("run"):
+        mc = (b // int(name[3:])) % ch
+    elif name == "early":           # a change at each of b = 1 .. LV
+        mc = np.where(b <= longv + 1, b % ch, (b // 7) % ch)
+    elif name == "tile_edge":       # changes across the 31/32, 255/256 edges
+        mc = np.zeros(B, int)
+        mc[[31, 255]] = 1
+        mc[256:] = 2 % ch
+    else:                           # random
+        mc = np.random.default_rng(B + ch).integers(0, ch, B)
+    return mc.astype(np.int32)
+
+
+# the largest channel count the first H (one warp, every channel's inputs
+# and an output ring in shared memory) accepted at LV 6: 8 (LV + 1) ch +
+# 32 (40 + 20 ch) bytes within 227 KiB
+ONE_WARP_MAX_CH = 332
+H_CASES = ([(1, 4096, "random", 6), (2, 4096, "random", 6),
+            (3, 4096, "random", 6), (2, 7, "random", 6),
+            (33, 1000, "random", 6), (64, 300, "random", 6)]
+           + [(c, 600, p, 6) for p in ("constant", "every", "run2", "run5",
+                                       "run6", "run7", "run300", "early",
+                                       "tile_edge") for c in (2, 3)]
+           + [(ONE_WARP_MAX_CH, 333, "random", 6), (3, 1000, "random", 6),
+              (2, 4, "every", 6), (3, 1, "random", 6)]
+           + [(3, 600, "random", lv) for lv in (1, 2, 3, 4)])
+
+
+@pytest.mark.parametrize("ch,B,pattern,longv", H_CASES,
+                         ids=[f"{p}-ch{c}-B{b}-lv{v}"
+                              for c, b, p, v in H_CASES])
+def test_block_sweep_kernel_matches_plain(dev, ch, B, pattern, longv):
     """H against its plain version, bit for bit: one channel to more than
-    a warp's lanes, a block shorter than LV and than a tile."""
+    a warp's lanes and ONE_WARP_MAX_CH; the loudest-channel patterns of
+    tests/test_torch_block.py (runs, a change at every bin, at b = 1..LV,
+    across tile edges); B not a multiple of the tile, B < LV, B = 1; LV 1-4
+    (downl formed in place below 4, the shortest early lead at 4)."""
     from signalsmith_stretch_torch.ops import block_sweep
     x = _sweep_block_inputs(ch, B, dev, seed=ch)
-    got = block_sweep.block_sweep(x, 6)
-    ref = block_sweep.block_sweep_plain(x, 6)
+    if pattern != "random":
+        mc = max_ch_pattern(pattern, ch, B, longv)
+        x = x._replace(max_ch=_t(mc, dev))
+    got = block_sweep.block_sweep(x, longv)
+    ref = block_sweep.block_sweep_plain(x, longv)
     assert got.shape == (ch, B) and got.device == x.pe.device
     assert torch.equal(torch.view_as_real(got).view(torch.int32),
                        torch.view_as_real(ref).view(torch.int32))
-    stamps = block_sweep.phase_stamps(x, 6)
+    stamps = block_sweep.phase_stamps(x, longv)
     assert stamps.shape == (1, len(block_sweep.PHASES) + 3)
-    assert int(stamps[0, 1]) > 0 and int(stamps[0, 3]) > int(stamps[0, 2])
+    st = stamps[0].tolist()
+    assert st[1] > 0 and st[-2] > st[-3]
+
+
+def test_block_sweep_chain_floor(dev):
+    """The floor entry (one thread, the lead recursion alone) launches on
+    a stream block's shapes and returns a positive time and every bin."""
+    from signalsmith_stretch_torch.ops import block_sweep
+    x = _sweep_block_inputs(2, 4096, dev)
+    cycles, t0, t1, bins = block_sweep.chain_floor(x)[0].tolist()
+    assert cycles > 0 and t1 > t0 and bins == 4096
+    cycles, t0, t1, bins = block_sweep.chain_floor(
+        _sweep_block_inputs(1, 5, dev))[0].tolist()
+    assert cycles > 0 and bins == 8
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(semitones=5),
