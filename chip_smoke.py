@@ -53,10 +53,11 @@ Phases, in order; any failure exits non-zero before the last line:
      and on the card, and a 3 s clip's render gate as in phase 4;
   6. the CLI (python3 -m signalsmith_stretch_torch.cli) in a subprocess on
      a 10 s stereo 16-bit WAV at 1.25x and +3 semitones: its file equal to
-     exact()'s render of the same samples, quantised the same way; then the
-     dev CLI (cli_dev) twice on a 10 s WAV: the golden snapshot, then the
-     -60 dB gate against it with --profile, the allocation guard on both;
-  7. streaming: one 10 s stereo 48 kHz clip through the library object's
+     exact()'s render of the same samples, quantised the same way;
+  7. the dev CLI (cli_dev) twice on a 10 s WAV: the golden snapshot, then
+     the -60 dB gate against it with --profile, the allocation guard on
+     both;
+  8. streaming: one 10 s stereo 48 kHz clip through the library object's
      streaming methods (output_seek, process in 512-sample output calls,
      flush at rate 0) at 1.25x, at pitch+12 with the 8 kHz limit, with a
      formant shift (base estimated) and under pitch+12's map as a torch
@@ -75,14 +76,39 @@ Phases, in order; any failure exits non-zero before the last line:
      lead recursion alone (`chain_floor_ms`); the first 0.5 s through the kernels
      against the plain path on the CPU, within 12 dB of the plain stream's
      own 1-ulp sensitivity, band energies within 3 dB;
-  8. the kernel table as one JSON line, the nvidia-smi line, and the device
+  9. the scheduler and the worklet host: a StretchNode (default preset,
+     stereo 48 kHz, 128-sample quanta) on the streams' 10 s clip with
+     examples/scheduled_playback.py's schedule and a vocal-tuner segment
+     (formant +3 st with compensation, base estimated), so that D, A, H,
+     C, G, E and F launch: 5 s quantum by quantum (ms a quantum, median
+     and p99, against the 2.667 ms budget; launches; synchronising calls
+     a quantum) and through render(batched=True) from a fresh node (one
+     process_many a segment run, no synchronising call inside its loop),
+     bit-equal; the first 0.5 s against the plain path on the CPU (the
+     streaming phase's gate); 2 s of live input at 1.0x quantum by quantum
+     and batched, bit-equal; WorkletHost with batch_quanta 1 and 8, 2 s
+     each bit-equal to the node driven directly, and the render thread's
+     ms a quantum;
+ 10. the corpus and the parallel layer: 16 stereo 48 kHz WAVs of 5-10 s
+     (pairs of utils/evaluation.synth_clip kinds) at 1.25x and at +5 st
+     through io/corpus (load_directory, batches of 8) and
+     parallel.batch.batch_render over make_mesh(): each batch bit-equal to
+     StretchModel.batched, the realtime factor and peak memory of a pass;
+     a 60 s stereo clip at 1.25x as 8 chunks (parallel.timechunk.
+     stretch_long) against the monolithic render: envelopes within 1.5
+     dB away from the seams, the first chunk within -19 dB, both wall
+     times; parallel.distributed in single-process mode: initialize()
+     False, global_batch -> allgather bit-equal;
+ 11. the kernel table as one JSON line, the nvidia-smi line, and the device
      line {"ok": true, "device": {...}} last.  A kernel's `ms` is the median
      of 20 launches, each alone between CUDA events (5 for B); `ms_b2b` the
      mean of 20 issued back to back, which hides the host's launch time.
 
 With `--block-sweep-floor` the script runs only H's floor entry (after
 the header and H's build); with `--prior-block-sweep FILE`, H against an
-earlier H built from FILE, in turns, on two streams' blocks.
+earlier H built from FILE, in turns, on two streams' blocks; with
+`--scheduler-parallel`, phases 9 and 10 alone (after the header and the
+build).
 
 There is no CPU fallback: without CUDA the script fails.
 """
@@ -2151,6 +2177,418 @@ def prior_block_sweep(path):
                           "lead_changes": dbg["lead_changes"]} | res))
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the scheduler (StretchNode) and the worklet host (WorkletHost)
+# ---------------------------------------------------------------------------
+NODE_QUANTUM = 128
+NODE_SECONDS = 5.0
+NODE_GATE_SECONDS = 0.5      # the kernels' node against the plain path
+LIVE_SECONDS = 2.0
+HOST_SECONDS = 2.0
+QUANTUM_BUDGET_MS = 1e3 * NODE_QUANTUM / RATE      # 2.667 ms at 48 kHz
+# examples/scheduled_playback.py's schedule at full width, every segment
+# at its output time, and a vocal-tuner segment after it: half speed from
+# 0 s; input 2 s at 1.0x, +5 st with the 8 kHz limit; a loop of 0.5-1.5 s
+# at 0.8x for 2 s; then formant +3 st with compensation, the base
+# estimated (with the +5 st map): D, A, H, C, G, E and F all launch
+NODE_SCHEDULE = (
+    dict(output=0.0, input=0.0, rate=0.5),
+    dict(output=1.0, input=2.0, rate=1.0, semitones=5, tonality_hz=8000),
+    dict(output=2.0, input=0.5, rate=0.8, loop_start=0.5, loop_end=1.5),
+    dict(output=4.0, input=4.0, rate=1.0, semitones=5, tonality_hz=8000,
+         formant_semitones=3, formant_compensation=True, formant_base_hz=0),
+)
+NODE_KERNELS = ("dft", "interp_multi", "block_sweep", "iir", "peaks_map",
+                "decay", "top3")
+
+
+def _scheduled_node(clip, device=None, plain=False):
+    """A StretchNode (default preset, stereo 48 kHz, 128-sample quanta) with
+    the clip in its store and NODE_SCHEDULE scheduled, on `device` (by
+    default DEVICE)."""
+    from signalsmith_stretch_torch.scheduler import StretchNode
+    node = StretchNode(RATE, channels=2, quantum=NODE_QUANTUM,
+                       preset="default", device=device or DEVICE,
+                       plain=plain)
+    node.add_buffers(clip)
+    for seg in NODE_SCHEDULE:
+        node.schedule(**seg)
+    return node
+
+
+class SyncCounter:
+    """Synchronising calls under torch.cuda.set_sync_debug_mode("warn"):
+    in all, and inside StreamingStretch._seek and _process (the loop body
+    of process_many and process_many_live)."""
+
+    def __enter__(self):
+        import torch
+        import warnings
+        from signalsmith_stretch_torch.streaming import StreamingStretch
+        self._cls, self.inside = StreamingStretch, 0
+        self._caught = warnings.catch_warnings(record=True)
+        self.caught = self._caught.__enter__()
+        warnings.simplefilter("always")
+        self._orig = {n: getattr(StreamingStretch, n)
+                      for n in ("_seek", "_process")}
+
+        def counted(fn):
+            def wrapper(*a, **k):
+                n0 = len(self.caught)
+                r = fn(*a, **k)
+                self.inside += len(self.caught) - n0
+                return r
+            return wrapper
+
+        for n, fn in self._orig.items():
+            setattr(StreamingStretch, n, counted(fn))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode("default")
+        for n, fn in self._orig.items():
+            setattr(self._cls, n, fn)
+        self.total = sum("synchroniz" in str(w.message) for w in self.caught)
+        self._caught.__exit__(*exc)
+
+
+def node_per_quantum(clip, seconds):
+    """The node rendered quantum by quantum, each process_quantum() timed
+    on the host's clock (it returns numpy, so each waits for its quantum).
+    Returns (output, ms of each quantum)."""
+    node = _scheduled_node(clip)
+    outs, times = [], []
+    for _ in range(int(round(seconds * RATE / NODE_QUANTUM))):
+        t0 = time.perf_counter()
+        outs.append(node.process_quantum())
+        times.append(1e3 * (time.perf_counter() - t0))
+    return np.concatenate(outs, 1), times
+
+
+def check_node_vs_plain(clip):
+    """The first NODE_GATE_SECONDS through the kernels against the plain
+    path on the CPU: bit-equal, or within 12 dB of the plain node's own
+    response to a 1-ulp change of its store (up or down, the larger), band
+    energies within 3 dB."""
+    k = _scheduled_node(clip).render(NODE_GATE_SECONDS)
+
+    def plain(x):
+        return _scheduled_node(x, "cpu", plain=True).render(NODE_GATE_SECONDS)
+
+    p = plain(clip)
+    if np.array_equal(k, p):
+        return f"first {NODE_GATE_SECONDS:g} s bit-equal to the plain path"
+    sens = [rel_err_db(plain(np.nextafter(clip, np.float32(way))), p)
+            for way in (np.inf, -np.inf)]
+    dev_db = rel_err_db(k, p)
+    band = np.abs(band_energy_db(k) - band_energy_db(p)).max()
+    if not (np.isfinite(k).all() and dev_db < max(sens) + 12.0
+            and band <= 3.0):
+        raise SystemExit(f"node: the first {NODE_GATE_SECONDS:g} s through "
+                         f"the kernels {dev_db:.1f} dB from the plain path "
+                         f"(1-ulp sensitivity {sens[0]:.1f} / {sens[1]:.1f} "
+                         f"dB), band energies within {band:.2f} dB")
+    return (f"first {NODE_GATE_SECONDS:g} s {dev_db:.1f} dB from the plain "
+            f"path on the CPU, its 1-ulp sensitivity {sens[0]:.1f} (up) / "
+            f"{sens[1]:.1f} (down) dB, band energies within {band:.2f} dB")
+
+
+def check_worklet(clip, want):
+    """WorkletHost on the card with NODE_SCHEDULE, HOST_SECONDS pulled
+    with batch_quanta 1 and 8: each bit-equal to `want` (the node driven
+    directly); the render thread's ms a quantum (the consumer's wall time
+    over the quanta, the ring holding 8).  Returns {batch_quanta: ms}."""
+    from signalsmith_stretch_torch.worklet import WorkletHost
+    n = int(round(HOST_SECONDS * RATE / NODE_QUANTUM))
+    ms = {}
+    for batch in (1, 8):
+        host = WorkletHost(RATE, channels=2, quantum=NODE_QUANTUM,
+                           preset="default", buffer_quanta=8,
+                           batch_quanta=batch, device=DEVICE)
+        try:
+            host.add_buffers(clip)
+            for seg in NODE_SCHEDULE:
+                host.schedule(**seg)
+            t0 = time.perf_counter()
+            host.resume()
+            got = host.read(n, timeout=300.0)
+            ms[batch] = 1e3 * (time.perf_counter() - t0) / n
+        finally:
+            host.close()
+        if not np.array_equal(got, want[:, :n * NODE_QUANTUM]):
+            raise SystemExit(f"worklet (batch_quanta {batch}): differs from "
+                             f"the node driven directly")
+    return ms
+
+
+def check_scheduler():
+    """Phase 9.  Returns the launch counts of the per-quantum render."""
+    import torch
+    t0 = time.perf_counter()
+    clip = make_corpus(1, 2, int(RATE * SECONDS), RATE, seed=5)[0]
+    _scheduled_node(clip).render(NODE_SECONDS, batched=True)    # set-up
+    reset_counters()
+    with SyncCounter() as sq:
+        out, times = node_per_quantum(clip, NODE_SECONDS)
+    counts = counters()
+    quanta = len(times)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with SyncCounter() as sb:
+        batched = _scheduled_node(clip).render(NODE_SECONDS, batched=True)
+    batched_ms = 1e3 * (time.perf_counter() - t1)
+    if not np.array_equal(out, batched):
+        raise SystemExit("node: render(batched=True) differs from the "
+                         "quantum-by-quantum render")
+    if sb.inside or sq.inside:
+        raise SystemExit(f"node: {sb.inside} synchronising calls inside the "
+                         f"process_many loop, {sq.inside} inside the "
+                         f"per-quantum seek/process")
+    missing = [k for k in NODE_KERNELS if counts[k] < 1]
+    if missing or not np.isfinite(out).all():
+        raise SystemExit(f"node: kernels never launched {missing}, or the "
+                         f"output is not finite")
+    med = statistics.median(times)
+    p99 = float(np.percentile(times, 99))
+    print(f"node (scheduler): {NODE_SECONDS:g} s stereo {RATE} Hz, "
+          f"{quanta} quanta of {NODE_QUANTUM} (schedule: 0.5x, then +5 st "
+          f"8 kHz from input 2 s, a 0.5-1.5 s loop at 0.8x, formant +3 st "
+          f"with compensation, base estimated): a quantum median "
+          f"{med:.3f} ms, p99 {p99:.3f} ms, budget {QUANTUM_BUDGET_MS:.3f} "
+          f"ms; {sum(times):.1f} ms in all, realtime factor "
+          f"{NODE_SECONDS / (sum(times) / 1e3):.2f}x; batched "
+          f"(render(batched=True), one process_many a segment run) "
+          f"{batched_ms:.1f} ms, realtime factor "
+          f"{NODE_SECONDS / (batched_ms / 1e3):.2f}x, bit-equal; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; synchronising calls "
+          f"{sq.total} per-quantum ({sq.total / quanta:.2f} a quantum, "
+          f"{sq.inside} inside seek/process), {sb.total} batched "
+          f"({sb.inside} inside the process_many loop)")
+    print(f"node: {check_node_vs_plain(clip)}")
+
+    live_in = clip[:, :int(LIVE_SECONDS * RATE)]
+    lives = {}
+    for batched in (False, True):
+        from signalsmith_stretch_torch.scheduler import StretchNode
+        node = StretchNode(RATE, channels=2, quantum=NODE_QUANTUM,
+                           preset="default", device=DEVICE)
+        node.start(rate=1.0)
+        t2 = time.perf_counter()
+        lives[batched] = node.render(LIVE_SECONDS, live_input=live_in,
+                                     batched=batched)
+        lives[batched, "ms"] = 1e3 * (time.perf_counter() - t2)
+    if not np.array_equal(lives[False], lives[True]):
+        raise SystemExit("node live input: batched differs from quantum by "
+                         "quantum")
+    print(f"node live input: {LIVE_SECONDS:g} s at 1.0x, quantum by quantum "
+          f"{lives[False, 'ms']:.1f} ms, batched {lives[True, 'ms']:.1f} "
+          f"ms, bit-equal")
+    host_ms = check_worklet(clip, out)
+    print(f"worklet: {HOST_SECONDS:g} s pulled through the render thread, "
+          f"bit-equal to the node driven directly with batch_quanta 1 and "
+          f"8; the render thread's ms a quantum {host_ms[1]:.3f} (1) and "
+          f"{host_ms[8]:.3f} (8), budget {QUANTUM_BUDGET_MS:.3f} ms")
+    print(f"phase 9 (scheduler and worklet): "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the corpus pipeline and the parallel layer
+# ---------------------------------------------------------------------------
+CORPUS_CLIPS = 16
+CORPUS_BATCH = 8
+CORPUS_SETTINGS = (dict(time_factor=1.25), dict(semitones=5.0))
+LONG_SECONDS = 60.0
+LONG_CHUNKS = 8
+
+
+def write_corpus(directory):
+    """CORPUS_CLIPS stereo 48 kHz WAVs of 5 to 10 s, each channel one kind
+    of utils/evaluation.synth_clip (a pair of kinds a clip).  Half the
+    clips last 5.125-6 s and half 9.125-10 s, so that the whole-second
+    buckets hold CORPUS_BATCH clips each and every batch is full."""
+    from signalsmith_stretch_torch.io import write_wav
+    from signalsmith_stretch_torch.utils import evaluation
+    os.makedirs(directory, exist_ok=True)
+    kinds = evaluation.KINDS
+    full = {k: evaluation.synth_clip(k, RATE, 10.0)[0] for k in kinds}
+    paths = []
+    for i in range(CORPUS_CLIPS):
+        half = CORPUS_CLIPS // 2
+        n = int(RATE * (5.0 + 4.0 * (i >= half)
+                        + (i % half + 1) / half))
+        a, b = kinds[i % len(kinds)], kinds[(i + 3) % len(kinds)]
+        path = os.path.join(directory, f"clip{i:02d}_{a}_{b}.wav")
+        write_wav(path, np.stack([full[a][:n], full[b][:n]]), RATE)
+        paths.append(path)
+    return paths
+
+
+def _bucket_model(key, cache):
+    from signalsmith_stretch_torch.models import StretchModel
+    if key not in cache:
+        rate, ch, in_len, tf, st = key
+        cache[key] = StretchModel.build(
+            ch, rate, in_len, int(round(in_len * tf)), semitones=st,
+            tonality_hz=8000 if st else 0, device=DEVICE)
+    return cache[key]
+
+
+def corpus_pass(items, mesh, models, check=False):
+    """One pass of the corpus: load_directory's items -> batches -> the
+    bucket's batch_render over the mesh, outputs to the host.  A batch is
+    padded with silent clips to a multiple of the mesh's devices.
+    check=True holds each batch bit-equal to StretchModel.batched on the
+    same padded batch and seeds.  Returns (wall ms, batch sizes)."""
+    import torch
+    from signalsmith_stretch_torch.io import corpus
+    from signalsmith_stretch_torch.parallel import batch as pbatch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sizes = []
+    for b in corpus.batches(items, CORPUS_BATCH, device=mesh[0]):
+        model = _bucket_model(b["key"], models)
+        audio = b["audio"]
+        rem = (-audio.shape[0]) % len(mesh)
+        if rem:
+            audio = torch.cat([audio, audio.new_zeros(
+                (rem,) + tuple(audio.shape[1:]))])
+        seeds = np.arange(audio.shape[0])
+        run = pbatch.batch_render(model.plan, model.flags, mesh=mesh)
+        out = run(audio, model.controls, seeds).cpu().numpy()
+        sizes.append(len(b["names"]))
+        if check:
+            want = model.batched(audio, seeds).cpu().numpy()
+            if not np.array_equal(out, want) or not np.isfinite(out).all():
+                raise SystemExit(f"corpus: batch {b['key']} differs from "
+                                 f"StretchModel.batched")
+    return 1e3 * (time.perf_counter() - t0), sizes
+
+
+def check_corpus(mesh):
+    """The corpus through the pipeline twice: a first pass that builds the
+    plans and holds every batch to StretchModel.batched, then the timed
+    pass (its realtime factor, peak memory and launches)."""
+    import torch
+    from signalsmith_stretch_torch.io import corpus
+    paths = write_corpus(os.path.join(ROOT, "build", "corpus"))
+    items = []
+    for kw in CORPUS_SETTINGS:
+        items += corpus.load_directory(paths, **kw)
+    seconds = sum(it.seconds for it in items)
+    models = {}
+    first_ms, sizes = corpus_pass(items, mesh, models, check=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    ms, _ = corpus_pass(items, mesh, models)
+    counts = counters()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"corpus: {len(paths)} stereo {RATE} Hz WAVs of 5-10 s "
+          f"(synth_clip kinds in pairs) at 1.25x and at +5 st (8 kHz "
+          f"limit): {len(items)} items, {seconds:.1f} s of input, "
+          f"{len(sizes)} batches of {sizes} clips in {len(models)} buckets "
+          f"(batch_size {CORPUS_BATCH}) over "
+          f"{len(mesh)} device(s): each batch bit-equal to "
+          f"StretchModel.batched; first pass (plans built) {first_ms:.1f} "
+          f"ms; {ms:.1f} ms a pass, realtime factor "
+          f"{seconds / (ms / 1e3):.1f}x; peak memory {peak:.2f} GiB; "
+          f"launches a pass { {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
+def check_timechunk(mesh):
+    """A LONG_SECONDS stereo clip at 1.25x as LONG_CHUNKS chunks
+    (stretch_long over the mesh) against the monolithic render: envelopes
+    within 1.5 dB away from the seams, the first chunk within -19 dB (the
+    JAX package's gates, tests/test_sharding.py:45-84)."""
+    import torch
+    from signalsmith_stretch_torch import spectral
+    from signalsmith_stretch_torch.models import StretchModel
+    from signalsmith_stretch_torch.parallel.timechunk import stretch_long
+    clip = make_corpus(1, 2, int(RATE * LONG_SECONDS), RATE, seed=6)[0]
+    out_samples = int(round(clip.shape[1] * 1.25))
+    cfg_model = StretchModel.build(2, RATE, clip.shape[1], out_samples,
+                                   device=DEVICE)
+
+    def chunked():
+        return stretch_long(clip, out_samples, cfg_model.cfg,
+                            spectral.Controls.make(),
+                            spectral.SpectralFlags(False),
+                            n_chunks=LONG_CHUNKS, mesh=mesh)
+
+    def mono():
+        return cfg_model(clip).cpu().numpy()
+
+    walls = {}
+    for name, fn in (("chunked", chunked), ("monolithic", mono)):
+        t0 = time.perf_counter()
+        fn()
+        first = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        walls[name] = (fn(), first, 1e3 * (time.perf_counter() - t0))
+    c, m = walls["chunked"][0], walls["monolithic"][0]
+    win = RATE // 50
+    n = out_samples // win
+
+    def env(x):
+        return np.sqrt(np.mean(x[:, :n * win].reshape(2, n, win) ** 2,
+                               axis=(0, 2)))
+
+    ratio_db = 20 * np.log10((env(c) + 1e-9) / (env(m) + 1e-9))
+    per = -(-out_samples // LONG_CHUNKS)
+    seam = {k * per // win + d for k in range(1, LONG_CHUNKS)
+            for d in (-1, 0, 1)}
+    keep = [i for i in range(1, n - 1) if i not in seam]
+    env_db = float(np.max(np.abs(ratio_db[keep])))
+    db0 = rel_err_db(c[:, 2000:per - 8], m[:, 2000:per - 8])
+    if not (np.isfinite(c).all() and env_db < 1.5 and db0 < -19):
+        raise SystemExit(f"time chunks: envelopes within {env_db:.2f} dB "
+                         f"away from the seams, first chunk {db0:.1f} dB")
+    print(f"time chunks: {LONG_SECONDS:g} s stereo {RATE} Hz at 1.25x as "
+          f"{LONG_CHUNKS} chunks over {len(mesh)} device(s): envelopes "
+          f"within {env_db:.2f} dB of the monolithic render away from the "
+          f"seams, the first chunk {db0:.1f} dB; wall ms chunked "
+          f"{walls['chunked'][2]:.1f} (first call {walls['chunked'][1]:.1f}),"
+          f" monolithic {walls['monolithic'][2]:.1f} (first call "
+          f"{walls['monolithic'][1]:.1f})")
+    del cfg_model
+    torch.cuda.empty_cache()
+
+
+def check_distributed(mesh):
+    """parallel.distributed in single-process mode on the card:
+    initialize() is False, and a batch through global_batch and allgather
+    comes back bit-equal."""
+    from signalsmith_stretch_torch.parallel import distributed as dist
+    if dist.initialize() is not False or dist.process_count() != 1:
+        raise SystemExit("distributed: initialize() without a coordinator "
+                         "is not single-process")
+    local = make_corpus(2 * len(mesh), 2, RATE, RATE, seed=7)
+    back = dist.allgather(dist.global_batch(local, dist.global_mesh()))
+    if not np.array_equal(back, local):
+        raise SystemExit("distributed: global_batch -> allgather differs")
+    print(f"distributed: single-process (initialize() False), "
+          f"global_batch -> allgather of {local.shape} over "
+          f"{len(dist.global_mesh())} device(s) bit-equal")
+
+
+def check_parallel():
+    """Phase 10.  Returns the launch counts of the corpus's timed pass."""
+    from signalsmith_stretch_torch.parallel import batch as pbatch
+    t0 = time.perf_counter()
+    mesh = pbatch.make_mesh()
+    counts = check_corpus(mesh)
+    check_timechunk(mesh)
+    check_distributed(mesh)
+    print(f"phase 10 (corpus and parallel): "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main():
     import torch
     import signalsmith_stretch_torch  # noqa: F401  (fails outside a checkout)
@@ -2158,6 +2596,12 @@ def main():
         return floor_only()
     if sys.argv[1:2] == ["--prior-block-sweep"] and len(sys.argv) == 3:
         return prior_block_sweep(sys.argv[2])
+    if sys.argv[1:] == ["--scheduler-parallel"]:
+        header()
+        build_kernels()
+        check_scheduler()
+        check_parallel()
+        return print(smi_line())
     t_start = time.perf_counter()
     header()
     build_kernels()
@@ -2176,6 +2620,9 @@ def main():
         launches[k] += v
     print(f"streaming phase: {time.perf_counter() - t_stream:.1f} s of "
           f"{time.perf_counter() - t_start:.1f} s so far")
+    for counted in (check_scheduler(), check_parallel()):
+        for k, v in counted.items():
+            launches[k] += v
     entries["block_sweep"] = stream_rows["block_sweep"][STREAMS[1][0]]
     table = []
     for name, source, replaces in KERNELS:

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from . import engine, streaming
-from .config import StretchConfig
+from .config import StretchConfig, device_for
 from .spectral import Controls, SpectralFlags
 
 f32 = np.float32
@@ -40,10 +40,7 @@ class SignalsmithStretch:
         (key, shape, minval, maxval) -> float32 tensor of uniform draws,
         key being prng.key(seed).  None: prng.uniform, the JAX package's
         seeded threefry draws.  `device`: "cuda" (the default) or "cpu"."""
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("SignalsmithStretch: CUDA is not available; "
-                               "pass device='cpu' to render on the CPU")
+        self.device = device_for(device, "SignalsmithStretch")
         self._seed = int(seed)
         self._random_engine = random_engine
         self._cfg: Optional[StretchConfig] = None

@@ -90,3 +90,15 @@ class StretchConfig:
 # Spectral constants (signalsmith-stretch.h:508-509)
 NOISE_FLOOR = 1e-15
 MAX_CLEAN_STRETCH = 2.0
+
+
+def device_for(device, who: str):
+    """The device an entry point runs on, as a torch.device: "cuda" (every
+    entry point's default) needs a card and raises without one; the CPU
+    runs only when asked for, with the plain versions of the kernels."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: CUDA is not available; pass "
+                           "device='cpu' to render on the CPU")
+    return dev

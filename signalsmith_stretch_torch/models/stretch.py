@@ -8,7 +8,7 @@ import torch
 from torch import nn
 
 from .. import engine
-from ..config import StretchConfig
+from ..config import StretchConfig, device_for
 from ..spectral import Controls, SpectralFlags
 
 f32 = np.float32
@@ -24,10 +24,7 @@ class StretchModel(nn.Module):
                  flags: SpectralFlags, in_samples: int, out_samples: int,
                  plan: engine.ExactPlan = None, device="cuda"):
         super().__init__()
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("StretchModel: CUDA is not available; pass "
-                               "device='cpu' to render on the CPU")
+        self.device = device_for(device, "StretchModel")
         self.cfg, self.controls, self.flags = cfg, controls, flags
         self.in_samples, self.out_samples = in_samples, out_samples
         self.plan = plan or engine.build_exact_plan(cfg, in_samples,

@@ -29,12 +29,10 @@ import numpy as np
 import torch
 
 from . import spectral, stft
-from .config import NOISE_FLOOR, StretchConfig
+from .config import NOISE_FLOOR, StretchConfig, device_for
 
 f32 = np.float32
 _BIG = 1 << 30
-_NOT_PORTED = ("{} is not ported yet (ROADMAP.md §1, streaming: "
-               "process_many(_live) and the checkpoint utilities)")
 
 
 class StreamState(NamedTuple):
@@ -69,12 +67,63 @@ def initial_state(cfg: StretchConfig, consts: spectral.SpectralConsts,
         silence_counter=0, silence_first=True)
 
 
+_WINDOW = 32         # XLA's CPU tree reduction window
+
+
+def _fma_squares(a: np.ndarray) -> np.float32:
+    """acc = fma(v, v, acc) over a's values in order, from 0, each step
+    rounded once: the product is exact in float64, the sum rounded to odd
+    (prng.fma_f32's method) and then to float32."""
+    acc = 0.0
+    for v in a.ravel().tolist():
+        p = v * v
+        s = p + acc
+        bp = s - acc
+        err = (p - bp) + (acc - (s - bp))
+        if err != 0 and not np.float64(s).view(np.int64) & 1:
+            s = float(np.nextafter(s, np.inf if err > 0 else -np.inf))
+        acc = float(f32(s))
+    return f32(acc)
+
+
 def _energy(audio: np.ndarray) -> np.float32:
-    """The silence test's total energy (:231-238), float32 on the host.
-    Its summation order is numpy's, not XLA's: the two agree on which side
-    of the noise floor (1e-15) an input falls unless its energy is within
-    a few ulps of it (the tests' inputs are far from it on either side)."""
-    return np.sum(audio * audio, dtype=f32)
+    """The silence test's total energy (:231-238), float32, summed on the
+    host in the order JAX's compiled `jnp.sum(audio * audio)` sums it on
+    the CPU, so that an input within a few ulps of the noise floor (1e-15)
+    falls on JAX's side of it (tests/test_torch_streaming.py, test_silence_
+    decisions_at_floor_match_jax).  XLA's tree reduction rewriter splits a
+    reduction with a dimension over 32 into windows: each dimension over 32
+    padded to a multiple of 32 (half the padding before), windows of 32
+    along it and of the whole of each shorter dimension, each window summed
+    from 0 in row-major order (but for one column of padding, at the end,
+    the last column after the rest), the window sums reduced the same way
+    until no dimension is over 32, then summed in order.  Without a
+    dimension over 32
+    the squares are fused into the sum: a chain of fused multiply-adds.
+    Matched bit for bit up to 32 channels, at any length; with more, XLA
+    sums some 32 x 32 windows in another order."""
+    a = np.asarray(audio, f32)
+    if max(a.shape) <= _WINDOW:
+        return _fma_squares(a)
+    x = a * a
+    while max(x.shape) > _WINDOW:
+        pads = []
+        for n in x.shape:
+            p = 0 if n <= _WINDOW else -(-n // _WINDOW) * _WINDOW - n
+            pads.append((p // 2, p - p // 2))
+        x = np.pad(x, pads)
+        r, c = x.shape
+        w0, w1 = min(r, _WINDOW), min(c, _WINDOW)
+        w = x.reshape(r // w0, w0, c // w1, w1).transpose(0, 2, 1, 3)
+        if pads[1] == (0, 1):
+            # one column of padding, at the end: the compiled loop adds
+            # each window's last column after the rows' first 31
+            w = np.concatenate([w[..., :-1].reshape(r // w0, c // w1, -1),
+                                w[..., -1]], -1)
+        # a float32 cumulative sum adds in order, one rounding a step
+        x = np.cumsum(w.reshape(r // w0, c // w1, w0 * w1), -1,
+                      dtype=f32)[..., -1]
+    return np.cumsum(x.ravel(), dtype=f32)[-1]
 
 
 class StreamingStretch:
@@ -88,7 +137,7 @@ class StreamingStretch:
         self.cfg = cfg
         self.controls = controls
         self.flags = flags
-        self.device = torch.device(device)
+        self.device = device_for(device, "StreamingStretch")
         self.plain = plain
         self.basis = stft.StftBasis.for_config(cfg)
         self.consts = spectral.SpectralConsts.for_config(cfg)
@@ -109,17 +158,23 @@ class StreamingStretch:
     # ---- process (:209-419) -----------------------------------------------
     def process(self, audio_in, n_out: int) -> np.ndarray:
         audio = self._input(audio_in)
-        n_out = int(n_out)
+        x = torch.as_tensor(audio, device=self.device)
+        return self._process(audio, x, int(n_out)).cpu().numpy()
+
+    def _process(self, audio: np.ndarray, x: torch.Tensor,
+                 n_out: int) -> torch.Tensor:
+        """One process() call on the host copy of its input (for the
+        silence test) and the device copy (for the timeline); the output
+        [ch, n_out] stays on the device."""
         cfg, st = self.cfg, self.state
         ch, block, H = cfg.channels, cfg.block_samples, cfg.interval_samples
         n_in = audio.shape[1]
         hist_base = block + H + 1
-        x = torch.as_tensor(audio, device=self.device)
         timeline = torch.cat([st.in_hist, x], 1)
         new_hist = timeline[:, timeline.shape[1] - hist_base:]
         is_silent = bool(_energy(audio) < f32(NOISE_FLOOR))
 
-        out = None           # the bypass's (numpy), else the normal path's
+        out = None           # the bypass's, else the normal path's
         if is_silent:
             if st.silence_counter >= 2 * block:
                 # the silence bypass (:240-278): the input passes through
@@ -129,16 +184,15 @@ class StreamingStretch:
                     carry = carry._replace(input=z, prev_input=z, output=z)
                     ssl = _BIG
                 if n_in > 0:
-                    out = audio[:, np.arange(n_out) % n_in]
+                    out = x[:, torch.arange(n_out, device=self.device) % n_in]
                 else:
-                    out = np.zeros((ch, n_out), f32)
+                    out = x.new_zeros((ch, n_out))
                 st = st._replace(carry=carry, samples_since_last=ssl,
                                  silence_first=False)
             else:
                 st = st._replace(silence_counter=st.silence_counter + n_in)
         if out is None:
             st, out = self._normal(st, timeline, n_in, n_out, is_silent)
-            out = out.cpu().numpy()          # the call's one copy out
         self.state = st._replace(in_hist=new_hist)
         return out
 
@@ -205,17 +259,22 @@ class StreamingStretch:
     def seek(self, audio_in, playback_rate: float):
         """Prime the input history, latch the seek time factor."""
         audio = self._input(audio_in)
+        self._seek(audio, torch.as_tensor(audio, device=self.device),
+                   playback_rate)
+
+    def _seek(self, audio: np.ndarray, x: torch.Tensor, playback_rate):
+        """seek() on the host copy of its input (the energy) and the device
+        copy (the history)."""
         cfg, st = self.cfg, self.state
         block, H = cfg.block_samples, cfg.interval_samples
         n_in = audio.shape[1]
         buf_len = block + H
         if n_in >= buf_len:
-            window = audio[:, n_in - buf_len:]
+            window = x[:, n_in - buf_len:]
         else:
-            window = np.concatenate(
-                [np.zeros((cfg.channels, buf_len - n_in), f32), audio], 1)
-        hist = torch.cat([st.in_hist[:, -1:],
-                          torch.as_tensor(window, device=self.device)], 1)
+            window = torch.cat([x.new_zeros((cfg.channels, buf_len - n_in)),
+                                x], 1)
+        hist = torch.cat([st.in_hist[:, -1:], window], 1)
         live = bool(_energy(audio) >= f32(NOISE_FLOOR))
         rate = f32(playback_rate)
         stf = f32(f32(1) / rate) if rate * f32(H) > 1 else f32(H)
@@ -275,12 +334,46 @@ class StreamingStretch:
                                  output=torch.zeros_like(carry.output)))
         return np.concatenate(parts, axis=1)
 
-    # ---- not ported yet ---------------------------------------------------
-    def process_many(self, histories, rates, n_out: int):
-        raise NotImplementedError(_NOT_PORTED.format("process_many"))
+    # ---- batched quanta ----------------------------------------------------
+    def _many(self, arrays, what: str) -> tuple:
+        a = np.asarray(arrays, f32)
+        if a.ndim != 3 or a.shape[1] != self.cfg.channels:
+            raise ValueError(f"{what} must be [M, channels, samples]")
+        return a, torch.as_tensor(a, device=self.device)
 
-    def process_many_live(self, inputs, n_out: int):
-        raise NotImplementedError(_NOT_PORTED.format("process_many_live"))
+    def _stack_out(self, outs, m: int, n_out: int) -> np.ndarray:
+        if not outs:
+            return np.zeros((m, self.cfg.channels, n_out), f32)
+        return torch.stack(outs).cpu().numpy()
+
+    def process_many(self, histories, rates, n_out: int) -> np.ndarray:
+        """M quanta of the worklet's constant re-seek loop
+        (web-wrapper.js:267-322): the same as M calls of (seek(histories[i],
+        rates[i]); process(zeros [ch, 0], n_out)), bit for bit.
+
+        histories [M, ch, hist_len], rates [M] (or one rate) -> [M, ch,
+        n_out].  The histories go to the device in one copy and the outputs
+        come back in one; the quanta run in a host loop that never waits
+        for the card (the silence test reads the host copy)."""
+        hists, dev = self._many(histories, "histories")
+        m, n_out = hists.shape[0], int(n_out)
+        rates = np.broadcast_to(np.asarray(rates, f32), (m,))
+        empty = np.zeros((self.cfg.channels, 0), f32)
+        none = dev.new_zeros((self.cfg.channels, 0))
+        outs = []
+        for i in range(m):
+            self._seek(hists[i], dev[i], rates[i])
+            outs.append(self._process(empty, none, n_out))
+        return self._stack_out(outs, m, n_out)
+
+    def process_many_live(self, inputs, n_out: int) -> np.ndarray:
+        """M live-input quanta (web-wrapper.js:255-266): the same as M calls
+        of process(inputs[i], n_out), bit for bit; inputs [M, ch, n] ->
+        [M, ch, n_out], one copy in and one out."""
+        xs, dev = self._many(inputs, "inputs")
+        m, n_out = xs.shape[0], int(n_out)
+        outs = [self._process(xs[i], dev[i], n_out) for i in range(m)]
+        return self._stack_out(outs, m, n_out)
 
     # ---- state checkpointing ----------------------------------------------
     def state_dict(self) -> dict:

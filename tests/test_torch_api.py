@@ -257,18 +257,33 @@ def test_seed_and_random_engine(stereo_signal):
     assert np.isfinite(mid).all() and not np.array_equal(base, mid)
 
 
-def test_not_ported_methods_raise():
-    """The streaming methods are ported (tests/test_torch_streaming.py);
-    a stream's batched quanta, process_many and process_many_live, are not
-    yet, and raise naming the ROADMAP."""
+def test_process_many_matches_sequential_calls(test_signal):
+    """A stream's batched quanta run (process_many, process_many_live) and
+    equal, bit for bit, the seek + process calls and the process calls they
+    stand for, through the library object's stream."""
+    sig, _ = test_signal
     s = SignalsmithStretch(device="cpu")
     s.preset_default(1, RATE)
+    s.set_transpose_semitones(3, 2000 / RATE)
     stream = s._stream()
-    for call in (lambda: stream.process_many(np.zeros((2, 1, 10)),
-                                             [1.0, 1.0], 10),
-                 lambda: stream.process_many_live(np.zeros((2, 1, 10)), 10)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    buf = stream.cfg.input_latency + stream.cfg.output_latency
+    hists = np.stack([sig[:, 100 * i:100 * i + buf] for i in range(6)])
+    rates = np.float32([1.0, 1.0, 0.8, 0.8, 1.25, 1.25])
+    many = stream.process_many(hists, rates, 100)
+    s.reset()
+    seq = []
+    for h, r in zip(hists, rates):
+        s.seek(h, r)
+        seq.append(s.process(np.zeros((1, 0), np.float32), 100))
+    assert many.shape == (6, 1, 100)
+    np.testing.assert_array_equal(many, np.stack(seq))
+    xs = np.stack([sig[:, 5000 + 64 * i:5000 + 64 * (i + 1)]
+                   for i in range(8)])
+    snap = stream.state_dict()
+    live = stream.process_many_live(xs, 64)
+    stream.load_state_dict(snap)
+    np.testing.assert_array_equal(live,
+                                  np.stack([s.process(x, 64) for x in xs]))
 
 
 def test_default_device_is_cuda():

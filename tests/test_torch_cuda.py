@@ -767,3 +767,97 @@ def test_stream_on_card_matches_cpu(dev):
         assert g.shape == w.shape
         err = np.mean((g.astype(np.float64) - w) ** 2) if g.size else 0.0
         assert 10 * np.log10(err / power + 1e-30) < -100
+
+
+def _card_stream(semitones=0.0):
+    from signalsmith_stretch_torch import SignalsmithStretch
+    s = SignalsmithStretch(device="cuda")
+    s.preset_default(2, chip_smoke.RATE)
+    if semitones:
+        s.set_transpose_semitones(semitones, 8000 / chip_smoke.RATE)
+    return s._stream()
+
+
+@pytest.mark.parametrize("semitones", [0.0, 5.0], ids=["unmapped", "mapped"])
+def test_process_many_on_card_bit_equal_to_sequential(dev, semitones):
+    """process_many and process_many_live on the card: bit-equal to the
+    seek + process and process calls they stand for, with no synchronising
+    call inside their loops once the stream's device constants are made
+    (its first blocks copy them to the card, as in chip_smoke.py's
+    set-up runs)."""
+    clip = chip_smoke.make_corpus(1, 2, 96000, chip_smoke.RATE, seed=3)[0]
+    eng = _card_stream(semitones)
+    buf = eng.cfg.input_latency + eng.cfg.output_latency
+    hists = np.stack([clip[:, 64 * i:64 * i + buf] for i in range(24)])
+    rates = np.float32([0.8] * 12 + [1.25] * 12)
+    eng.process_many(hists, rates, 128)              # set-up
+    eng.reset()
+    with chip_smoke.SyncCounter() as sc:
+        many = eng.process_many(hists, rates, 128)
+    assert sc.inside == 0
+    eng.reset()
+    seq = []
+    for h, r in zip(hists, rates):
+        eng.seek(h, r)
+        seq.append(eng.process(np.zeros((2, 0), np.float32), 128))
+    np.testing.assert_array_equal(many, np.stack(seq))
+    xs = np.stack([clip[:, 20000 + 128 * i:20000 + 128 * (i + 1)]
+                   for i in range(24)])
+    snap = eng.state_dict()
+    with chip_smoke.SyncCounter() as sc:
+        live = eng.process_many_live(xs, 128)
+    assert sc.inside == 0
+    eng.load_state_dict(snap)
+    np.testing.assert_array_equal(live,
+                                  np.stack([eng.process(x, 128) for x in xs]))
+
+
+def test_node_batched_on_card_bit_equal(dev):
+    """A two-channel StretchNode on the card with a mapped segment (+5 st,
+    8 kHz limit) after an unmapped one: render(batched=True) bit-equal to
+    the quantum-by-quantum render."""
+    from signalsmith_stretch_torch.scheduler import StretchNode
+    clip = chip_smoke.make_corpus(1, 2, 96000, chip_smoke.RATE, seed=4)[0]
+
+    def run(batched):
+        node = StretchNode(chip_smoke.RATE, channels=2, quantum=128,
+                           device="cuda")
+        node.add_buffers(clip)
+        node.schedule(output=0.0, input=0.0, rate=0.8)
+        node.schedule(output=0.25, input=1.0, rate=1.0, semitones=5,
+                      tonality_hz=8000)
+        return node.render(0.6, batched=batched)
+
+    a = run(False)
+    assert np.isfinite(a).all() and a.shape == (2, 28800)
+    np.testing.assert_array_equal(run(True), a)
+
+
+def test_parallel_one_card_bit_equal_to_render_exact(dev):
+    """batch_render and stretch_long over a one-card mesh: bit-equal to
+    engine.render_exact on the same batch and seeds."""
+    from signalsmith_stretch_torch import engine
+    from signalsmith_stretch_torch.models import StretchModel
+    from signalsmith_stretch_torch.parallel import batch as pbatch
+    from signalsmith_stretch_torch.parallel import timechunk
+    mesh = pbatch.make_mesh(1)
+    clips = chip_smoke.make_corpus(4, 2, 48000, chip_smoke.RATE, seed=5)
+    model = StretchModel.build(2, chip_smoke.RATE, 48000, 60000,
+                               semitones=3, tonality_hz=8000)
+    seeds = np.arange(4) + 2
+    got = pbatch.batch_render(model.plan, model.flags, mesh=mesh)(
+        clips, model.controls, seeds)
+    want = engine.render_exact(_t(clips, dev), model.plan, model.controls,
+                               model.flags, seeds=[int(s) for s in seeds])
+    assert torch.equal(got, want)
+    long = chip_smoke.make_corpus(1, 2, 192000, chip_smoke.RATE, seed=6)[0]
+    out = timechunk.stretch_long(long, 240000, model.cfg, model.controls,
+                                 model.flags, n_chunks=4, seed=1, mesh=mesh)
+    edges, starts, in_len, out_len = timechunk.plan_chunks(
+        model.cfg, 192000, 240000, 4)
+    plan = engine.build_exact_plan(model.cfg, in_len, out_len)
+    chunks = engine.render_exact(
+        _t(timechunk.chunk_windows(long, starts, in_len), dev), plan,
+        model.controls, model.flags, seeds=[1, 2, 3, 4])
+    np.testing.assert_array_equal(
+        out, timechunk.assemble(chunks.cpu().numpy(), edges, 240000))

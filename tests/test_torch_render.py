@@ -131,8 +131,10 @@ def test_default_device_is_cuda():
 def test_port_imports_no_jax():
     """Importing every module of the port (the library object, the CLI,
     the dev CLI, the profiling utilities, the I/O, the draws, the
-    streaming engine and the block sweep among them) leaves jax and the
-    JAX package out of sys.modules."""
+    streaming engine, the block sweep, the scheduler and worklet host,
+    the checkpoints, the evaluation helpers, the corpus pipeline and the
+    parallel layer among them) leaves jax and the JAX package out of
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import signalsmith_stretch_torch as p\n"
@@ -141,10 +143,13 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'signalsmith_stretch_tpu')]\n"
-        "assert len(names) >= 16, names\n"
+        "assert len(names) >= 28, names\n"
         "for n in ('api', 'cli', 'cli_dev', 'io', 'io.wav', 'prng',\n"
         "          'utils', 'utils.profiling', 'streaming',\n"
-        "          'ops.block_sweep'):\n"
+        "          'ops.block_sweep', 'scheduler', 'worklet',\n"
+        "          'utils.checkpoint', 'utils.evaluation', 'io.corpus',\n"
+        "          'parallel', 'parallel.batch', 'parallel.timechunk',\n"
+        "          'parallel.distributed', 'parallel.dryrun'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -235,3 +235,70 @@ def test_jax_state_continues_in_port(stereo_signal):
     ref.load_state_dict(back)
     call = (sig[:, 5012:6036], 1024)
     _assert_calls_match([ref.process(*call)], [port.process(*call)])
+
+
+# ---- the silence test at the noise floor ------------------------------------
+def _near_floor(rng, ch, n, k):
+    """k inputs [ch, n] whose float32 energy, summed in numpy's order, lies
+    within 3 ulps of the noise floor (1e-15), on either side."""
+    floor = f32(1e-15)
+    x = rng.standard_normal((ch, n)).astype(f32)
+    x *= f32(np.sqrt(1e-15 / np.sum(x.astype(np.float64) ** 2)))
+    out = []
+    for step in rng.permutation(np.arange(-40, 41)):
+        y = (x * f32(1 + step * 2.0 ** -24)).astype(f32)
+        e = np.sum(y * y, dtype=f32)
+        ulps = (int(np.float32(e).view(np.int32))
+                - int(floor.view(np.int32)))
+        if abs(ulps) <= 3:
+            out.append(y)
+        if len(out) == k:
+            break
+    return out
+
+
+@pytest.mark.parametrize("ch,n", [(1, 37), (1, 512), (2, 160), (2, 1537)])
+def test_silence_decisions_at_floor_match_jax(ch, n, test_signal):
+    """Inputs whose energy lies within a few ulps of the 1e-15 noise floor:
+    each process() call's silence test and each seek's `live` test decide
+    as JAX's do (the silence counter and the first-silence latch after
+    every call equal JAX's), the port summing in XLA's CPU order
+    (streaming._energy) and JAX inside its compiled program."""
+    rng = np.random.default_rng(100 * ch + n)
+    port, ref, cfg = _pair(ch, 8000)
+    probes = _near_floor(rng, ch, n, 8)
+    assert len(probes) >= 4
+    sides = {bool(np.sum(p * p, dtype=f32) < f32(1e-15)) for p in probes}
+    assert sides == {True, False}        # both sides of the floor
+    zeros = np.zeros((ch, n), f32)
+    for s in (port, ref):
+        s.seek(test_signal[0][:1].repeat(ch, 0)[:, :cfg.input_latency], 1.0)
+    for p in probes:
+        for s in (port, ref):
+            s.process(zeros, 1)          # the counter off 0
+            s.process(p, 1)
+        assert port.state.silence_counter == int(ref.state.silence_counter)
+        assert port.state.silence_first == bool(ref.state.silence_first)
+        for s in (port, ref):
+            s.process(zeros, 1)
+            s.seek(p, 1.0)
+        assert port.state.silence_counter == int(ref.state.silence_counter)
+        assert port.state.silence_first == bool(ref.state.silence_first)
+
+
+@pytest.mark.parametrize("ch", [1, 2, 3, 32])
+def test_energy_sums_as_jax_compiles(ch):
+    """The silence test's energy (streaming._energy) equals JAX's compiled
+    jnp.sum(x * x) on the CPU bit for bit, at lengths on both sides of
+    XLA's 32-wide reduction windows (the fused multiply-add chain at 32 and
+    below; the tree of windows above)."""
+    import jax
+    import jax.numpy as jnp
+    from signalsmith_stretch_torch.streaming import _energy
+    fn = jax.jit(lambda x: jnp.sum(x * x))
+    rng = np.random.default_rng(ch)
+    for n in (0, 1, 17, 31, 32, 33, 63, 64, 160, 511, 1537, 7200):
+        x = (rng.standard_normal((ch, n)) * rng.uniform(0.1, 10)).astype(f32)
+        got = _energy(x)
+        assert type(got) is np.float32
+        assert got == np.asarray(fn(x)), (ch, n, got, np.asarray(fn(x)))
