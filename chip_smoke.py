@@ -29,7 +29,10 @@ Phases, in order; any failure exits non-zero before the last line:
      card's own serial floor for that work; for F one warp;
      Above 2x (the randomised regime): A on the 3x cell's four per-bin
      vote sets and on the 2.5x pitch+2 cell's five sets, bit-equal and
-     timed, and the seeded draws (prng.uniform) timed beside the sweep;
+     timed, and the draws (I) of both cells' batches bit-equal to their
+     plain version (prng.uniform and the selects), also under key words
+     past 2**31, timed against a bound of bytes or of the int32
+     instructions its SASS issues a draw (cuobjdump);
   4. renders of stereo48k_default_1.25x, stereo48k_pitch+12_tonality8k,
      formant_vocal_shift (base 220 Hz), formant_vocal_shift_auto (base
      estimated per block), stereo48k_3x_random (3x, no pitch map),
@@ -61,21 +64,23 @@ Phases, in order; any failure exits non-zero before the last line:
      streaming methods (output_seek, process in 512-sample output calls,
      flush at rate 0) at 1.25x, at pitch+12 with the 8 kHz limit, with a
      formant shift (base estimated) and under pitch+12's map as a torch
-     callable (its stream bit-identical to pitch+12's): each stream's
-     launches a block by kernel (D, A and H once a block; C, G, E, F as its
-     flags ask), synchronising calls under torch.cuda.set_sync_debug_mode
-     (in all, and inside the block loops), ms a call (median, p99), ms a
-     block, the realtime factor and peak memory; process_block through the
-     kernels bit-equal to the plain path on the card on the stream's first
-     8 blocks, and the share of their bins where the lead changes (down1
-     locked) and where mc[b-LV] != mc[b] (downl locked); H (also with a
-     third channel), A, G (or its split), F and D at one row against their
+     callable (its stream bit-identical to pitch+12's), and at 3x (every
+     block draws, as an ambient slow-down): each stream's launches a block
+     by kernel (D, A and H once a block; C, G, E, F as its flags ask; I
+     once a block above 2x, the flush's included), synchronising calls
+     under torch.cuda.set_sync_debug_mode (in all, and inside the block
+     loops), ms a call (median, p99), ms a block, the realtime factor and
+     peak memory; process_block through the kernels bit-equal to the plain
+     path on the card on the stream's first 8 blocks, and the share of
+     their bins where the lead changes (down1 locked) and where mc[b-LV]
+     != mc[b] (downl locked); H (also with a third channel), A, G (or its
+     split), F, I (a block's (2, B) draws) and D at one row against their
      plain versions, timed, H's phases from its timed entry (`chain_ms`,
      cycles a bin, the chain warp's waits on inputs and on the consumers)
      and its dependency floor from the floor entry, one thread running the
-     lead recursion alone (`chain_floor_ms`); the first 0.5 s through the kernels
-     against the plain path on the CPU, within 12 dB of the plain stream's
-     own 1-ulp sensitivity, band energies within 3 dB;
+     lead recursion alone (`chain_floor_ms`); the first 0.5 s through the
+     kernels against the plain path on the CPU, within 12 dB of the plain
+     stream's own 1-ulp sensitivity, band energies within 3 dB;
   9. the scheduler and the worklet host: a StretchNode (default preset,
      stereo 48 kHz, 128-sample quanta) on the streams' 10 s clip with
      examples/scheduled_playback.py's schedule and a vocal-tuner segment
@@ -114,6 +119,7 @@ There is no CPU fallback: without CUDA the script fails.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -193,6 +199,9 @@ KERNELS = (
     # the streaming engine's per-block bin sweep
     ("block_sweep", "signalsmith_stretch_torch/csrc/block_sweep.cu",
      "signalsmith_stretch_tpu/spectral.py:518"),
+    # the draws above 2x (jax.random.uniform, offline and per stream block)
+    ("draws", "signalsmith_stretch_torch/csrc/draws.cu",
+     "signalsmith_stretch_tpu/planner.py:485"),
 )
 DFT_TOL = 3e-6        # of the spectrum's peak magnitude (tests/test_stft.py)
 
@@ -341,6 +350,69 @@ def bound_ms(nbytes, flops):
     """The least time for the work: bytes at the HBM rate or flops at the
     float32 rate, whichever is longer."""
     tb, to = nbytes / PEAK_BYTES, flops / PEAK_F32
+    return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+# Hopper's issue (an SM: four schedulers, one warp instruction a clock
+# each) and its integer ALU pipe (16 lanes a scheduler).  Integer adds and
+# multiply-adds may also go down the FMA pipe (IMAD); shifts, funnel
+# shifts, logic ops, compares and selects only down the ALU pipe.
+ISSUE_A_CLOCK, ALU_A_CLOCK = 128, 64      # thread instructions an SM
+ALU_ONLY = {"SHF", "SHL", "SHR", "LOP3", "LOP", "LOP32I", "PRMT", "POPC",
+            "FLO", "BMSK", "SGXT", "BREV", "ISETP", "SEL", "IMNMX", "IABS",
+            "LEA"}
+INT_ANY = ALU_ONLY | {"IADD3", "IADD", "IADD32I", "VIADD", "IMAD", "IMUL",
+                      "ISCADD"}
+
+
+@functools.lru_cache(maxsize=1)
+def draws_issue():
+    """Kernel I's instructions, from its SASS (`cuobjdump -sass` of the
+    built library): those in the span of the vector entry's grid-stride
+    loop (one trip: 4 bins of btf1 and of btf2, 8 draws), in all, the
+    integer ones and those only the ALU pipe runs; and the card's SMs and
+    their highest clock (nvidia-smi)."""
+    import re
+    import torch
+    from signalsmith_stretch_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build._target("draws")[1])],
+                          capture_output=True, text=True, check=True).stdout
+    fn = [part for part in sass.split("Function : ")[1:]
+          if part.startswith("_Z12draws_kernelILi4E")]
+    if len(fn) != 1:
+        raise SystemExit("draws: the vector entry's SASS not found")
+    ins = []                  # (address, opcode, operands)
+    for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)([^;]*);", fn[0]):
+        ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    loops = [(int(t.group(1), 16), a) for a, op, rest in ins
+             if op.startswith("BRA")
+             and (t := re.search(r"0x([0-9a-f]+)", rest))
+             and int(t.group(1), 16) < a]
+    if not loops:
+        raise SystemExit("draws: no backward branch in the SASS")
+    lo, hi = max(loops, key=lambda span: span[1] - span[0])
+    body = [op.split(".")[0] for a, op, _ in ins
+            if lo <= a <= hi and op != "NOP"]
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
+    return dict(loop=len(body), int_loop=sum(op in INT_ANY for op in body),
+                alu_loop=sum(op in ALU_ONLY for op in body), clock_hz=clock,
+                sms=torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def draws_bound_ms(nbytes, draws, issue):
+    """The least time for `draws` draws: the bytes at the HBM rate, or the
+    loop's instructions (8 draws a trip) at the SMs' issue rate, or its
+    ALU-only ones at the ALU pipe's rate, the longest (draws_issue)."""
+    trips = draws / 8
+    per_clock = issue["sms"] * issue["clock_hz"]
+    to = trips * max(issue["loop"] / ISSUE_A_CLOCK,
+                     issue["alu_loop"] / ALU_A_CLOCK) / per_clock
+    tb = nbytes / PEAK_BYTES
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
@@ -1095,25 +1167,25 @@ def check_formant_scans():
 
 def counters():
     from signalsmith_stretch_torch import wavefront
-    from signalsmith_stretch_torch.ops import (block_sweep, dft, interp,
-                                               peaks, scan_ops)
+    from signalsmith_stretch_torch.ops import (block_sweep, dft, draws,
+                                               interp, peaks, scan_ops)
     return {"interp_multi": interp.launches, "sweep": wavefront.launches,
             "iir": scan_ops.launches, "dft": dft.launches,
             "decay": scan_ops.decay_launches,
             "top3": scan_ops.top3_launches, "peaks_map": peaks.launches,
             "peaks_runs": peaks.runs_launches,
             "peaks_out": peaks.out_launches,
-            "block_sweep": block_sweep.launches}
+            "block_sweep": block_sweep.launches, "draws": draws.launches}
 
 
 def reset_counters():
     from signalsmith_stretch_torch import wavefront
-    from signalsmith_stretch_torch.ops import (block_sweep, dft, interp,
-                                               peaks, scan_ops)
+    from signalsmith_stretch_torch.ops import (block_sweep, dft, draws,
+                                               interp, peaks, scan_ops)
     interp.launches = wavefront.launches = scan_ops.launches = 0
     dft.launches = scan_ops.decay_launches = scan_ops.top3_launches = 0
     peaks.launches = peaks.runs_launches = peaks.out_launches = 0
-    block_sweep.launches = 0
+    block_sweep.launches = draws.launches = 0
 
 
 def is_random(plan):
@@ -1130,7 +1202,8 @@ def expected_launches(flags, random=False):
     one launch of E for formants; with the base estimated, the top-3 scan
     (F) and the two freqEstimate chains over blocks, stacked in one launch
     of C.  Under a custom map G's runs and out entries take the place of
-    its one launch."""
+    its one launch.  Above 2x, one launch of I draws every clip's per-bin
+    time factors."""
     auto = flags.process_formants and flags.formant_auto
     custom = flags.mapped and flags.custom_map is not None
     return {"interp_multi": int(flags.mapped or random), "sweep": 1,
@@ -1138,7 +1211,7 @@ def expected_launches(flags, random=False):
             "decay": int(flags.process_formants), "top3": int(auto),
             "peaks_map": int(flags.mapped and not custom),
             "peaks_runs": int(custom), "peaks_out": int(custom),
-            "block_sweep": 0}
+            "block_sweep": 0, "draws": int(random)}
 
 
 def stage_split(model, audio):
@@ -1289,18 +1362,62 @@ def render_config(cfg):
     return counts
 
 
+def check_draws(name, plan, B):
+    """I on a randomised cell's blocks at the main path's shapes (the
+    batch's keys, seeds 0..7; the plan's bounds), bit-equal to its plain
+    version (prng.uniform and the selects) on the card, and again with
+    key words past 2**31 (seeds -1 and 2**31); timed alone, back to back
+    and plain.  Bound: the outputs' bytes, or the SASS loop's issue for
+    the draws this plan needs (blocks above 2x only), draws_bound_ms."""
+    import torch
+    from signalsmith_stretch_torch import planner
+    from signalsmith_stretch_torch.config import MAX_CLEAN_STRETCH
+    from signalsmith_stretch_torch.ops import draws
+    dev = torch.device(DEVICE)
+    tf = np.maximum(plan.arrays["time_factor"],
+                    np.float32(1 / MAX_CLEAN_STRETCH)).astype(np.float32)
+    nB = len(tf)
+    bounds = planner._random_bounds(tf.tobytes(), dev)
+    args = (planner._clip_keys(tuple(range(BATCH)), dev), *bounds, B)
+    for a in (args, (planner._clip_keys((-1, 2 ** 31), dev), *bounds, B)):
+        got = draws.draws_factors(*a)
+        ref = draws.draws_factors_plain(*a)
+        if not all(same_bits(g, r) for g, r in zip(got, ref)):
+            raise SystemExit(f"draws ({name}, keys {a[0].tolist()}): kernel "
+                             f"differs from the plain version, max abs "
+                             f"{max(max_abs(g, r) for g, r in zip(got, ref))}")
+    del got, ref
+    ms = cuda_ms(lambda: draws.draws_factors(*args), KERNEL_REPS)
+    b2b = cuda_ms_b2b(lambda: draws.draws_factors(*args), KERNEL_REPS)
+    plain = cuda_ms(lambda: draws.draws_factors_plain(*args), 3)
+    issue = draws_issue()
+    drawn = 2 * BATCH * int((tf > np.float32(MAX_CLEAN_STRETCH)).sum()) * B
+    nbytes = 2 * BATCH * nB * B * 4 + BATCH * 8 + nB * 9
+    bound = draws_bound_ms(nbytes, drawn, issue)
+    print(f"I draws {name}: btf1, btf2 [{BATCH}, {nB}, {B}] ({drawn} draws "
+          f"in the blocks above 2x): bit-equal to the plain version, also "
+          f"with key words past 2**31; {ms:.4f} ms a launch alone, "
+          f"{b2b:.4f} ms back to back, plain {plain:.1f} ms; bound "
+          f"{bound[0]:.4f} ms ({bound[1]}: {nbytes / 1e6:.1f} MB; the "
+          f"SASS loop's {issue['loop']} instructions for 8 draws, "
+          f"{issue['int_loop']} integer, {issue['alu_loop']} ALU-only, at "
+          f"{ISSUE_A_CLOCK} and {ALU_A_CLOCK} a clock on {issue['sms']} SMs "
+          f"at {issue['clock_hz'] / 1e6:g} MHz)")
+    return dict(max_abs_err=0.0, ms=ms, ms_b2b=b2b, plain_ms=plain,
+                bound=bound, shape=(BATCH, nB, B), drawn=drawn,
+                sass=dict(issue))
+
+
 def check_random_interp():
     """A on the randomised cells' position sets at their main-path shapes:
     four per-bin vote sets over the input's planes (3x, unmapped) and G's
     input bin with four vote sets (2.5x at +2 semitones), bit-equal to the
-    plain version and timed.  Also times the draws (the per-bin factors of
-    the batch, each clip's prng.uniform of (2, nB, B)) and, at 3x, the
-    sweep they feed.  Returns the numbers by cell."""
+    plain version and timed; I on the same cells (check_draws) and, at 3x,
+    the sweep's time.  Returns (A's numbers, I's numbers) by cell."""
     import torch
-    from signalsmith_stretch_torch import engine, planner, prng, wavefront
-    from signalsmith_stretch_torch.config import MAX_CLEAN_STRETCH
+    from signalsmith_stretch_torch import engine, planner, wavefront
     from signalsmith_stretch_torch.ops import interp
-    out = {}
+    out, drawn = {}, {}
     for cfg in (RANDOM, RANDOM_MAPPED):
         name = cfg[0]
         model, clips = _model(cfg, BATCH)
@@ -1337,31 +1454,16 @@ def check_random_interp():
               f"ms, bound {bound[0]:.4f} ms ({bound[1]})")
         out[name] = dict(ms=ms, ms_b2b=b2b, plain_ms=plain, bound=bound,
                          planes=tuple(planes.shape), sets=len(pos_sets))
-        nB = spectra.shape[1]
-        tf = np.maximum(plan.arrays["time_factor"],
-                        np.float32(1 / MAX_CLEAN_STRETCH)).astype(np.float32)
-        lo = torch.as_tensor((np.float32(4) * (tf > 2).astype(np.float32)
-                              - tf)[None, :, None], device=DEVICE)
-        hi = torch.as_tensor(tf[None, :, None].copy(), device=DEVICE)
-        draws = cuda_ms(lambda: [prng.uniform(prng.key(i), (2, nB, B), lo, hi,
-                                              DEVICE) for i in range(BATCH)],
-                        5)
-        factors = cuda_ms(lambda: planner._random_time_factors(
-            tf, range(BATCH), B, model.flags, DEVICE), 5)
-        out[name].update(draws_ms=draws, factors_ms=factors, nB=nB)
-        line = (f"draws {name}: prng.uniform of [{BATCH}, 2, {nB}, {B}] "
-                f"({BATCH} clips of (2, {nB}, {B})) {draws:.3f} ms, the "
-                f"planner's per-bin factors with their selects {factors:.3f} "
-                f"ms")
+        del got, ref
+        drawn[name] = check_draws(name, plan, B)
         if cfg is RANDOM:
             sweep = cuda_ms(lambda: wavefront.sweep(
                 inputs, plan.consts.long_vertical_step), 3)
             out[name]["sweep_ms"] = sweep
-            line += f"; the sweep of the same batch {sweep:.3f} ms"
-        print(line)
-        del spectra, prev, inputs, dbg, planes, pos, got, ref, audio
+            print(f"B sweep {name}: the same batch {sweep:.3f} ms")
+        del spectra, prev, inputs, dbg, planes, pos, audio
         torch.cuda.empty_cache()
-    return out
+    return out, drawn
 
 
 def check_automation():
@@ -1563,6 +1665,8 @@ STREAMS = (
     ("stream_formant_vocal_shift_auto", 1.0, dict(semitones=5,
                                                   formant_semitones=3)),
     ("stream_custom_tonality_map", 1.0, dict(semitones=12, custom=True)),
+    # every block above 2x draws (kernel I): an ambient 3x slow-down
+    ("stream_3x", 3.0, {}),
 )
 STREAM_CHUNK = 512           # output samples a process() call
 STREAM_GATE_SECONDS = 0.5    # the kernels' stream against the plain path
@@ -1633,12 +1737,13 @@ def _stream_calls(s, clip, time_factor, out_seconds=None):
     return outs, times
 
 
-def expected_stream_launches(flags, blocks):
+def expected_stream_launches(flags, blocks, drawn=0):
     """Launches of a stream's blocks: D, A and H once a block; C once a
     block when mapped (the smoothing) and once more with the base
     estimated (the estimate's step); G once a block when mapped (its runs
     and out entries under a custom map); E once a block for formants, F
-    with the base estimated."""
+    with the base estimated; I once in each of the `drawn` blocks above
+    2x (a flush at rate 0 runs such blocks too)."""
     auto = flags.process_formants and flags.formant_auto
     custom = flags.mapped and flags.custom_map is not None
     return {"interp_multi": blocks, "sweep": 0,
@@ -1647,7 +1752,8 @@ def expected_stream_launches(flags, blocks):
             "top3": blocks * int(auto),
             "peaks_map": blocks * int(flags.mapped and not custom),
             "peaks_runs": blocks * int(custom),
-            "peaks_out": blocks * int(custom), "block_sweep": blocks}
+            "peaks_out": blocks * int(custom), "block_sweep": blocks,
+            "draws": drawn}
 
 
 def _record_blocks(engine, clip, time_factor, n):
@@ -1758,12 +1864,13 @@ def check_stream_kernels(name, dbg, eng, clip):
     """Each kernel of the stream's block at its shapes (one row) against
     its plain version on the card, on the inputs of process_block's last
     checked block: H (also with a third channel), A, G (or its two
-    entries under a custom map), F with the base estimated, and D on the
-    block's two frames of each channel.  Returns {kernel: numbers}."""
+    entries under a custom map), F with the base estimated, I (a block's
+    draws at 3x), and D on the block's two frames of each channel.
+    Returns {kernel: numbers}."""
     import torch
-    from signalsmith_stretch_torch import spectral, stft
-    from signalsmith_stretch_torch.ops import (block_sweep, dft, interp,
-                                               peaks, scan_ops)
+    from signalsmith_stretch_torch import prng, spectral, stft
+    from signalsmith_stretch_torch.ops import (block_sweep, dft, draws,
+                                               interp, peaks, scan_ops)
     out = {}
     consts, longv = eng.consts, eng.consts.long_vertical_step
     x = dbg["sweep"]
@@ -1871,6 +1978,21 @@ def check_stream_kernels(name, dbg, eng, clip):
             lambda: scan_ops.top3_local_maxima(metric),
             lambda: spectral._top3_local_maxima(metric), 4 * (B + 6), 6 * B)
         out["top3"]["max_abs_err"] = 0.0
+    # --- I at one row: a block's draws (2, B) at 3x under a split key with
+    # its top bit set, against prng.uniform of (2, B) --------------------
+    key = prng.split(prng.key(2 ** 31 + 5))[1]
+    lo, hi = np.float32(1), np.float32(3)
+    got = draws.draws_block(key, lo, hi, B, DEVICE)
+    ref = draws.draws_block_plain(key, lo, hi, B, DEVICE)
+    if not same_bits(got, ref):
+        raise SystemExit(f"{name}: draws_block differs from the plain "
+                         f"version, max abs {max_abs(got, ref):g}")
+    issue = draws_issue()
+    out["draws"] = one_row_timing(
+        lambda: draws.draws_block(key, lo, hi, B, DEVICE),
+        lambda: draws.draws_block_plain(key, lo, hi, B, DEVICE), 0, 0)
+    out["draws"].update(max_abs_err=0.0, bound=draws_bound_ms(
+        2 * B * 4, 2 * B, issue))
     # --- D on one block's frames: [2 ch, block] ----------------------------
     block, H = eng.cfg.block_samples, eng.cfg.interval_samples
     c = torch.as_tensor(clip, device=DEVICE)
@@ -1897,7 +2019,7 @@ def check_stream_kernels(name, dbg, eng, clip):
           f"{tuple(planes.shape)} x {len(pos_sets)} sets "
           f"{out['interp_multi']['ms']:.4f} ms"
           + "".join(f", {k} {v['ms']:.4f} ms" for k, v in out.items()
-                    if k in ("peaks_map", "peaks_split", "top3"))
+                    if k in ("peaks_map", "peaks_split", "top3", "draws"))
           + f"; D [{nF}, {block}] within {err / peak:.3g} of the peak, "
           f"{out['dft']['ms']:.4f} ms")
     return out
@@ -1941,18 +2063,26 @@ def stream_vs_plain(cfg, clip):
 def run_stream(cfg, clip):
     """The stream's main-path run through the library object: output_seek,
     the 10 s clip in STREAM_CHUNK-sample output chunks, flush at rate 0;
-    launches by kernel counted from 0, synchronising calls counted under
-    torch.cuda.set_sync_debug_mode("warn"), inside the block loop and in
-    all.  Returns (launch counts, numbers, output)."""
+    launches by kernel counted from 0 (against the blocks run and those of
+    them above 2x, counted from their time factors), synchronising calls
+    counted under torch.cuda.set_sync_debug_mode("warn"), inside the block
+    loop and in all.  Returns (launch counts, numbers, output)."""
     import torch
     import warnings
+    from signalsmith_stretch_torch import streaming
     name, tf, _ = cfg
     warm = _stream_object(cfg)                  # set-up: caches, constants
     _stream_calls(warm, clip, tf, out_seconds=0.2)
     s = _stream_object(cfg)
     eng = s._stream()
-    loop_syncs = [0]
-    normal = eng._normal
+    loop_syncs, drawn = [0], [0]
+    normal, block_fn = eng._normal, streaming.spectral.process_block
+
+    def block_counted(carry, xs, *a, **k):
+        drawn[0] += int(max(np.float32(xs.time_factor), np.float32(0.5))
+                        > np.float32(2))
+        return block_fn(carry, xs, *a, **k)
+
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
 
@@ -1963,6 +2093,7 @@ def run_stream(cfg, clip):
             return r
 
         eng._normal = counted
+        streaming.spectral.process_block = block_counted
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.set_sync_debug_mode("warn")
@@ -1973,19 +2104,20 @@ def run_stream(cfg, clip):
         finally:
             torch.cuda.set_sync_debug_mode("default")
             eng._normal = normal
+            streaming.spectral.process_block = block_fn
         counts = counters()
     syncs = sum("synchroniz" in str(w.message) for w in caught)
     blocks = eng.blocks - blocks0
-    want = expected_stream_launches(eng.flags, blocks)
+    want = expected_stream_launches(eng.flags, blocks, drawn[0])
     if counts != want:
         raise SystemExit(f"{name}: kernel launches {counts}, expected {want} "
-                         f"for {blocks} blocks")
+                         f"for {blocks} blocks, {drawn[0]} above 2x")
     out = np.concatenate(outs, 1)
     if not np.isfinite(out).all():
         raise SystemExit(f"{name}: output not finite")
     calls = len(times)
     wall = sum(times)
-    nums = dict(blocks=blocks, calls=calls, wall_ms=wall,
+    nums = dict(blocks=blocks, drawn=drawn[0], calls=calls, wall_ms=wall,
                 call_ms_median=statistics.median(times),
                 call_ms_p99=float(np.percentile(times, 99)),
                 block_ms=wall / blocks,
@@ -1996,7 +2128,8 @@ def run_stream(cfg, clip):
                                   if v})
     print(f"{name}: {SECONDS:g} s stereo {RATE} Hz at {tf:g}x in {calls} "
           f"calls of {STREAM_CHUNK} output samples (output_seek, process, "
-          f"flush at rate 0): {blocks} blocks, {out.shape[1]} samples; "
+          f"flush at rate 0): {blocks} blocks ({drawn[0]} above 2x), "
+          f"{out.shape[1]} samples; "
           f"{wall:.1f} ms in all, a call median {nums['call_ms_median']:.3f} "
           f"ms, p99 {nums['call_ms_p99']:.3f} ms, {nums['block_ms']:.3f} ms "
           f"a block, realtime factor {nums['realtime']:.1f}x; launches a "
@@ -2010,7 +2143,7 @@ def run_stream(cfg, clip):
 # the port's kernels by the names of their CUDA functions
 OWN_KERNELS = (("H", "block_sweep_kernel"), ("A", "interp_multi_kernel"),
                ("D", "dft_kernel"), ("G", "peaks_"), ("C/E", "chain_kernel"),
-               ("F", "top3_kernel"))
+               ("F", "top3_kernel"), ("I", "draws_kernel"))
 
 
 def stream_profile(cfg, clip, calls=48):
@@ -2606,7 +2739,8 @@ def main():
     header()
     build_kernels()
     entries = check_kernels()
-    random_interp = check_random_interp()
+    random_interp, random_draws = check_random_interp()
+    entries["draws"] = random_draws[RANDOM[0]]
     launches = {name: 0 for name, _, _ in KERNELS}
     for counted in [render_config(cfg) for cfg in CONFIGS] + [
             check_automation()]:
@@ -2647,6 +2781,10 @@ def main():
     table[0]["random_sets"] = {
         name: {k: v for k, v in e.items() if k != "bound"}
         | {"bound_ms": e["bound"][0]} for name, e in random_interp.items()}
+    next(t for t in table if t["name"] == "draws")["cells"] = {
+        name: {k: v for k, v in e.items() if k != "bound"}
+        | {"bound_ms": e["bound"][0], "bound_by": e["bound"][1]}
+        for name, e in random_draws.items()}
     missing = [t["name"] for t in table if t["launches"] < 1]
     if missing:
         raise SystemExit(f"kernels never launched on the main path: {missing}")

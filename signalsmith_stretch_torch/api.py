@@ -38,8 +38,9 @@ class SignalsmithStretch:
         39) and seeds the randomised binTimeFactors above 2x; `random_engine`
         its `RandomEngine` template parameter (:34-39, 610-616): a callable
         (key, shape, minval, maxval) -> float32 tensor of uniform draws,
-        key being prng.key(seed).  None: prng.uniform, the JAX package's
-        seeded threefry draws.  `device`: "cuda" (the default) or "cpu"."""
+        key being prng.key(seed).  None: the JAX package's seeded threefry
+        draws (kernel I on the card, ops/draws; prng.uniform on the CPU).
+        `device`: "cuda" (the default) or "cpu"."""
         self.device = device_for(device, "SignalsmithStretch")
         self._seed = int(seed)
         self._random_engine = random_engine

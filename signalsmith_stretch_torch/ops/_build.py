@@ -51,6 +51,10 @@ ENTRY = {
                           [_P] * 10 + [_I] * 5 + [_P, _P]),
     "block_sweep_floor": ("block_sweep", "sst_block_sweep_floor",
                           [_P] * 5 + [_I] * 2 + [_P] * 3),
+    "draws": ("draws", "sst_draws_factors", [_P] * 6 + [_I] * 3 + [_P]),
+    # key words unsigned (a seed of 2**31 or more), bounds as float32
+    "draws_block": ("draws", "sst_draws_block", [ctypes.c_uint32] * 2
+                    + [ctypes.c_float] * 2 + [_P, _I, _P]),
 }
 SOURCES = tuple(dict.fromkeys(source for source, _, _ in ENTRY.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -37,7 +37,7 @@ import torch.nn.functional as F
 
 from . import prng, spectral
 from .config import MAX_CLEAN_STRETCH, NOISE_FLOOR
-from .ops import interp, peaks, scan_ops
+from .ops import draws, interp, peaks, scan_ops
 
 f32 = np.float32
 
@@ -128,32 +128,47 @@ def _vote_shifts(tf_key: bytes, ltf_key: bytes, device: torch.device):
 
 @functools.lru_cache(maxsize=8)
 def _random_bounds(tf_key: bytes, device: torch.device):
-    """Above 2x (:747-757): the blocks whose binTimeFactor is drawn
-    (random_tf = tf > 2, [nB, 1] bool), and the draws' bounds lo_d = 4 *
-    random_tf - tf and tf as [1, nB, 1] float32, JAX's expressions
-    (planner.py:483-488), on `device` once per (plan, device)."""
+    """Above 2x (:747-757): the draws' bounds tf and lo_d = 4 * random_tf
+    - tf as [nB] float32, and the blocks whose binTimeFactor is drawn
+    (random_tf = tf > 2, [nB] bool), JAX's expressions (planner.py:
+    483-488), in draws.draws_factors' order, on `device` once per (plan,
+    device)."""
     tf = np.frombuffer(tf_key, np.float32)
     random_tf = tf > f32(MAX_CLEAN_STRETCH)
     lo_d = (f32(MAX_CLEAN_STRETCH) * 2 * random_tf.astype(f32) - tf).astype(
         f32)
-    return (torch.as_tensor(random_tf[:, None], device=device),
-            torch.as_tensor(lo_d[None, :, None], device=device),
-            torch.as_tensor(tf[None, :, None].copy(), device=device))
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (tf.copy(), lo_d, random_tf))
+
+
+@functools.lru_cache(maxsize=8)
+def _clip_keys(seeds: tuple, device: torch.device) -> torch.Tensor:
+    """The clips' keys prng.key(seed) as [batch, 2] uint32 on `device`,
+    copied once per (seeds, device)."""
+    keys = np.array([prng.key(s) for s in seeds], np.uint32).reshape(-1, 2)
+    return torch.as_tensor(keys, device=device)
 
 
 def _random_time_factors(tf: np.ndarray, seeds, B: int,
-                         flags: spectral.SpectralFlags, device):
+                         flags: spectral.SpectralFlags, device,
+                         plain: bool = False):
     """The per-bin time factors of the randomised regime, btf1 and btf2
     [batch, nB, B] float32: for each clip, draws (2, nB, B) uniform in
-    [lo_d, tf) from prng.key(seed) (through flags.random_engine, if set) in
-    the blocks above 2x, tf elsewhere."""
-    random_tf, lo_d, tf_t = _random_bounds(tf.astype(f32).tobytes(), device)
-    draws = torch.stack([
-        spectral.draw_uniform(flags, prng.key(seed), (2, len(tf), B), lo_d,
-                              tf_t) for seed in seeds])
-    tf_b = tf_t[0]                                           # [nB, 1]
-    return (torch.where(random_tf, draws[:, 0], tf_b),
-            torch.where(random_tf, draws[:, 1], tf_b))
+    [lo_d, tf) from prng.key(seed) in the blocks above 2x, tf elsewhere.
+    On the card that is one launch of kernel I (ops/draws.draws_factors;
+    its plain version, prng.uniform and the selects, with plain=True).  A
+    flags.random_engine takes the draws' place, a call a clip."""
+    tf_t, lo_d, random_tf = _random_bounds(tf.astype(f32).tobytes(), device)
+    if flags.random_engine is None:
+        factors = draws.draws_factors_plain if plain else draws.draws_factors
+        return factors(_clip_keys(tuple(int(s) for s in seeds), device),
+                       tf_t, lo_d, random_tf, B)
+    nB = len(tf)
+    drawn = torch.stack([
+        spectral.draw_uniform(flags, prng.key(seed), (2, nB, B),
+                              lo_d.view(1, nB, 1), tf_t.view(1, nB, 1))
+        for seed in seeds])
+    return draws.select_blocks(drawn, random_tf, tf_t)
 
 
 def _formant_ratio(metric: torch.Tensor, batch: int,
@@ -336,8 +351,8 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
         seeds = range(batch) if seeds is None else [int(x) for x in seeds]
         if len(seeds) != batch:
             raise ValueError(f"{len(seeds)} seeds for {batch} clips")
-        btf1, btf2 = (rows(t) for t in _random_time_factors(tf, seeds, B,
-                                                              flags, dev))
+        btf1, btf2 = (rows(t) for t in _random_time_factors(
+            tf, seeds, B, flags, dev, plain))
         if debug:
             dbg.update(btf1=btf1, btf2=btf2)
     if flags.mapped or flags.process_formants:

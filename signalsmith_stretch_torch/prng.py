@@ -3,7 +3,9 @@
 The randomised binTimeFactors of stretches above 2x (signalsmith-stretch.h:
 747-757) come from `jax.random.uniform(jax.random.PRNGKey(seed), shape,
 float32, minval, maxval)` in the JAX package.  This module computes the same
-bits with plain torch integer ops, the same code on the CPU and on the card:
+bits with plain torch integer ops, on any device; on the card the renders
+and the stream blocks draw through kernel I (ops/draws.py, csrc/draws.cu),
+whose plain version `uniform` is:
 
 - `key(seed)`: PRNGKey of a 32-bit seed (jax/_src/prng.py `_threefry_seed`),
   the pair (0, seed mod 2**32).  A negative seed maps to its two's
@@ -27,8 +29,7 @@ bits with plain torch integer ops, the same code on the CPU and on the card:
   two roundings differ.
 
 torch's uint32 lacks shifts and xor on some backends, so the words are
-int64 tensors masked to 32 bits.  This is not the port of a TPU kernel:
-JAX lowers threefry as an XLA op.
+int64 tensors masked to 32 bits: ~210 PyTorch ops a `uniform` call.
 """
 from __future__ import annotations
 

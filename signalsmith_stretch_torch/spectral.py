@@ -73,7 +73,8 @@ class SpectralFlags:
     # the reference's RandomEngine (:34-39, 610-616): a callable (key,
     # shape, minval, maxval) -> float32 tensor of uniform draws, consumed
     # only by the randomised binTimeFactors above 2x (:747-757); key is a
-    # clip's prng.key(seed).  None: prng.uniform, JAX's seeded threefry.
+    # clip's prng.key(seed).  None: JAX's seeded threefry (ops/draws:
+    # kernel I on the card, prng.uniform its plain version).
     random_engine: Optional[Callable] = None
     # the reference's customFreqMap (:119-122, 850-851): an elementwise
     # callable from input to output frequency (normalised, cycles a
@@ -180,13 +181,12 @@ def inv_map_formant(freq: torch.Tensor, controls: Controls) -> torch.Tensor:
 
 def draw_uniform(flags: SpectralFlags, key, shape, minval: torch.Tensor,
                  maxval: torch.Tensor) -> torch.Tensor:
-    """The randomised binTimeFactors' draws through the pluggable engine
-    (JAX spectral.draw_uniform): float32 of `shape` on minval's device."""
-    if flags.random_engine is not None:
-        out = flags.random_engine(key, shape, minval, maxval)
-        return torch.as_tensor(out, dtype=torch.float32,
-                               device=minval.device).expand(shape)
-    return prng.uniform(key, shape, minval, maxval, device=minval.device)
+    """The randomised binTimeFactors' draws through the user's engine
+    flags.random_engine (JAX spectral.draw_uniform): float32 of `shape` on
+    minval's device.  Without an engine the callers take ops/draws."""
+    out = flags.random_engine(key, shape, minval, maxval)
+    return torch.as_tensor(out, dtype=torch.float32,
+                           device=minval.device).expand(shape)
 
 
 def _freq_to_band(freq, consts: SpectralConsts):
@@ -449,14 +449,15 @@ def process_block(carry: SpectralCarry, xs: BlockInputs, controls: Controls,
 
     Through the kernels: C (the smoothing) and G (peaks, output map and
     the down-vote positions) for a mapped render, E and, with the base
-    estimated, F and C for formants, A (every lookup of the block in one
-    launch: the prediction at the input bins when mapped, and the votes)
-    and H (the bin sweep).  plain=True takes their plain versions on any
-    device.  Nothing in it waits for the card: every branch is decided by
-    the flags and the block's host values.  A `dbg` dict receives each
+    estimated, F and C for formants, I (the draws) above 2x, A (every
+    lookup of the block in one launch: the prediction at the input bins
+    when mapped, and the votes) and H (the bin sweep).  plain=True takes
+    their plain versions on any device.  Nothing in it waits for the
+    card: every branch is decided by the flags and the block's host
+    values.  A `dbg` dict receives each
     kernel's inputs (the card's checks call the kernels on them)."""
     from . import planner
-    from .ops import block_sweep, interp, peaks, scan_ops
+    from .ops import block_sweep, draws, interp, peaks, scan_ops
     ch, B = consts.channels, consts.bands
     longv = consts.long_vertical_step
     dev = carry.output.device
@@ -516,10 +517,14 @@ def process_block(carry: SpectralCarry, xs: BlockInputs, controls: Controls,
     # draws are taken only where they are used --------------------------
     rng, sub = prng.split(carry.rng)
     if random_tf:
-        lo = torch.full((), float(f32(f32(2 * MAX_CLEAN_STRETCH) - tf)),
-                        device=dev)
-        hi = torch.full((), float(tf), device=dev)
-        btf1, btf2 = draw_uniform(flags, sub, (2, B), lo, hi)
+        lo = f32(f32(2 * MAX_CLEAN_STRETCH) - tf)
+        if flags.random_engine is not None:
+            btf1, btf2 = draw_uniform(flags, sub, (2, B),
+                                      torch.full((), float(lo), device=dev),
+                                      torch.full((), float(tf), device=dev))
+        else:
+            block = draws.draws_block_plain if plain else draws.draws_block
+            btf1, btf2 = block(sub, lo, tf, B, dev)
         vote_pos = [input_bin - btf1, input_bin - float(longv) * btf1,
                     torch.roll(input_bin, -1) - btf2,
                     torch.roll(input_bin, -longv) - float(longv) * btf2]

@@ -6,11 +6,13 @@ without JAX run them without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances.  Kernels A, B, C, E, F, G and H: bit equality.  They are built
-with --fmad=false and IEEE division and square root, so they round at the
-same points as the plain versions, which are written as separate float32
-PyTorch ops (H's in numpy on a CPU copy, with the fused multiply-adds of
-XLA's compiled scan, which H takes with __fmaf_rn).  G (the peaks map) is also held to its plain version on a CPU
+Tolerances.  Kernels A, B, C, E, F, G, H and I: bit equality.  They are
+built with --fmad=false and IEEE division and square root, so they round
+at the same points as the plain versions, which are written as separate
+float32 PyTorch ops (H's in numpy on a CPU copy, with the fused
+multiply-adds of XLA's compiled scan, which H takes with __fmaf_rn; I's
+draw is prng.uniform's one rounding, prng.fma_f32, taken with
+__fmaf_rn).  G (the peaks map) is also held to its plain version on a CPU
 copy of its inputs, whose runs are summed bin-ascending as in the
 reference and in the JAX package on the CPU.  Kernel D, the analysis DFT,
 is one half-length complex FFT per frame (a mixed-radix Stockham FFT in
@@ -861,3 +863,96 @@ def test_parallel_one_card_bit_equal_to_render_exact(dev):
         model.controls, model.flags, seeds=[1, 2, 3, 4])
     np.testing.assert_array_equal(
         out, timechunk.assemble(chunks.cpu().numpy(), edges, 240000))
+
+
+# ---------------------------------------------------------------------------
+# Kernel I: the draws above 2x, offline and per stream block
+# ---------------------------------------------------------------------------
+def _draws_check(dev, seeds, tf, B):
+    """I against its plain version on the card, bit for bit, with the
+    planner's cached keys and bounds; the launch counter moves by one."""
+    from signalsmith_stretch_torch import planner
+    from signalsmith_stretch_torch.ops import draws
+    bounds = planner._random_bounds(np.asarray(tf, np.float32).tobytes(), dev)
+    args = (planner._clip_keys(tuple(seeds), dev), *bounds, B)
+    n0 = draws.launches
+    got = draws.draws_factors(*args)
+    assert draws.launches == n0 + 1
+    ref = draws.draws_factors_plain(*args)
+    for g, r in zip(got, ref):
+        assert g.shape == (len(seeds), len(tf), B) and g.device.type == "cuda"
+        assert chip_smoke.same_bits(g, r)
+
+
+@pytest.mark.parametrize("cell", [chip_smoke.RANDOM, chip_smoke.RANDOM_MAPPED],
+                         ids=["3x", "2.5x"])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_draws_kernel_matches_plain_cells(dev, cell, batch):
+    """I at the randomised cells' shapes (10 s stereo 48 kHz, B = 4096,
+    the plans' time factors), seeds 0..batch-1."""
+    from signalsmith_stretch_torch.config import MAX_CLEAN_STRETCH
+    model, _ = chip_smoke._model(cell, 1)
+    tf = np.maximum(model.plan.arrays["time_factor"],
+                    np.float32(1 / MAX_CLEAN_STRETCH))
+    assert (tf > 2).any()
+    _draws_check(dev, range(batch), tf, 4096)
+
+
+DRAW_SHAPES = [(1, 4096, (0,)), (1, 37, (2 ** 31,)),
+               (7, 4097, (-1, 2 ** 31, 5)), (7, 37, tuple(range(8))),
+               (3, 1, (1,)), (5, 6, (2 ** 32 + 5, 3))]
+
+
+@pytest.mark.parametrize("nB,B,seeds", DRAW_SHAPES,
+                         ids=[f"nB{n}-B{b}-batch{len(s)}"
+                              for n, b, s in DRAW_SHAPES])
+def test_draws_kernel_shapes(dev, nB, B, seeds):
+    """I at odd B (scalar stores), nB = 1, batch 1 to 8, key words past
+    2**31, with blocks below 2x, at 2x, just above and at 4x (lo_d = 0)."""
+    rng = np.random.default_rng(nB * 1000 + B)
+    tf = rng.choice(np.asarray([1.5, 2.0, np.nextafter(np.float32(2), 3),
+                                2.5, 3.0, 4.0], np.float32), nB)
+    tf[-1] = 4.0
+    _draws_check(dev, seeds, tf, B)
+
+
+@pytest.mark.parametrize("B", [4096, 37])
+def test_draws_block_kernel_stream_keys(dev, B):
+    """I's stream entry under 16 consecutive split keys of a stream seeded
+    past 2**31, at 3x, a flush's 1440 and 4x, bit-equal to the plain
+    version (prng.uniform of (2, B)); one launch each."""
+    from signalsmith_stretch_torch import prng
+    from signalsmith_stretch_torch.ops import draws
+    k = prng.key(2 ** 31 + 5)
+    for blk in range(16):
+        k, sub = prng.split(k)
+        tf = np.float32((3.0, 1440.0, 4.0)[blk % 3])
+        lo = np.float32(np.float32(4) - tf)
+        n0 = draws.launches
+        got = draws.draws_block(sub, lo, tf, B, dev)
+        assert draws.launches == n0 + 1
+        ref = draws.draws_block_plain(sub, lo, tf, B, dev)
+        assert got.shape == (2, B) and chip_smoke.same_bits(got, ref)
+
+
+def test_stream_blocks_3x_draw(dev):
+    """process_block at 3x through the kernels against the plain path on a
+    stream's first blocks, bit for bit (the draws feed the votes); a block
+    above 2x launches I once."""
+    from signalsmith_stretch_torch import spectral
+    from signalsmith_stretch_torch.ops import dft
+    clip = chip_smoke.make_corpus(1, 2, 48000, chip_smoke.RATE, seed=1)[0]
+    _, eng = chip_smoke.check_stream_blocks(("stream_3x", 3.0, {}), clip)
+    block, H = eng.cfg.block_samples, eng.cfg.interval_samples
+    c = _t(clip, dev)
+    chip_smoke.reset_counters()
+    specs = dft.analyze(torch.cat([c[:, H:H + block], c[:, :block]]),
+                        eng.basis)
+    xs = spectral.BlockInputs(specs[:2], specs[2:], True, True,
+                              np.float32(3))
+    spectral.process_block(spectral.SpectralCarry.initial(eng.consts, 0, dev),
+                           xs, eng.controls, eng.flags, eng.consts)
+    torch.cuda.synchronize()
+    want = chip_smoke.expected_stream_launches(eng.flags, 1, 1)
+    want["dft"] = 1
+    assert chip_smoke.counters() == want

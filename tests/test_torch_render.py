@@ -130,11 +130,11 @@ def test_default_device_is_cuda():
 
 def test_port_imports_no_jax():
     """Importing every module of the port (the library object, the CLI,
-    the dev CLI, the profiling utilities, the I/O, the draws, the
-    streaming engine, the block sweep, the scheduler and worklet host,
-    the checkpoints, the evaluation helpers, the corpus pipeline and the
-    parallel layer among them) leaves jax and the JAX package out of
-    sys.modules."""
+    the dev CLI, the profiling utilities, the I/O, the draws and kernel
+    I's wrapper, the streaming engine, the block sweep, the scheduler and
+    worklet host, the checkpoints, the evaluation helpers, the corpus
+    pipeline and the parallel layer among them) leaves jax and the JAX
+    package out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import signalsmith_stretch_torch as p\n"
@@ -145,6 +145,7 @@ def test_port_imports_no_jax():
         "('jax', 'jaxlib', 'signalsmith_stretch_tpu')]\n"
         "assert len(names) >= 28, names\n"
         "for n in ('api', 'cli', 'cli_dev', 'io', 'io.wav', 'prng',\n"
+        "          'ops.draws',\n"
         "          'utils', 'utils.profiling', 'streaming',\n"
         "          'ops.block_sweep', 'scheduler', 'worklet',\n"
         "          'utils.checkpoint', 'utils.evaluation', 'io.corpus',\n"

@@ -33,7 +33,7 @@ import chip_smoke as cs  # noqa: E402
 # the __global__ functions of csrc/ (unstage_kernel matches stage_kernel)
 PORT_KERNELS = ("interp_multi_kernel", "stage_kernel", "sweep_kernel",
                 "chain_kernel", "dft_kernel", "top3_kernel",
-                "peaks_map_kernel")
+                "peaks_map_kernel", "draws_kernel")
 
 
 def _summary(name, wall, prof, top=6):
