@@ -112,6 +112,10 @@ Phases, in order; any failure exits non-zero before the last line:
 With `--block-sweep-floor` the script runs only H's floor entry (after
 the header and H's build); with `--prior-block-sweep FILE`, H against an
 earlier H built from FILE, in turns, on two streams' blocks; with
+`--prior-peaks-split FILE`, G's runs and out entries and the one-launch G
+against those of an earlier peaks.cu built from FILE (for instance
+`git show HEAD:signalsmith_stretch_torch/csrc/peaks.cu`), bit-equal, then
+in turns on the pitch+12 cell's planner rows and at one row; with
 `--scheduler-parallel`, phases 9 and 10 alone (after the header and the
 build).
 
@@ -532,13 +536,12 @@ def _model(cfg, batch, seconds=SECONDS):
     return model, clips
 
 
-def check_kernels():
-    """Phase 3: each kernel against its plain version at the main path's
-    shapes.  Returns {name: entry} with the measured numbers."""
+def mapped_planner():
+    """The pitch+12 cell's model, its batch on the card, and its planner's
+    sweep inputs and debug tensors (the plain planner on the spectra of
+    one analysis through D): the main path's shapes of A, C and G."""
     import torch
-    from signalsmith_stretch_torch import engine, planner, wavefront
-    from signalsmith_stretch_torch.ops import interp, scan_ops
-
+    from signalsmith_stretch_torch import engine, planner
     model, clips = _model(MAPPED, BATCH)
     audio = torch.as_tensor(clips, device=DEVICE)
     plan = model.plan
@@ -547,6 +550,18 @@ def check_kernels():
                                         model.controls, model.flags,
                                         plan.consts, plain=True, debug=True)
     torch.cuda.synchronize()
+    return model, audio, inputs, dbg
+
+
+def check_kernels():
+    """Phase 3: each kernel against its plain version at the main path's
+    shapes.  Returns {name: entry} with the measured numbers."""
+    import torch
+    from signalsmith_stretch_torch import wavefront
+    from signalsmith_stretch_torch.ops import interp
+
+    model, audio, inputs, dbg = mapped_planner()
+    plan = model.plan
     entries = {}
 
     # --- A: interp_multi on G's stacked positions (the main path's call),
@@ -631,7 +646,7 @@ def check_kernels():
           f"({bound[1]})")
     entries["sweep"] = dict(max_abs_err=err, ms=ms, ms_b2b=b2b,
                             plain_ms=plain, bound=bound)
-    del inputs, dbg, spectra, prev, audio
+    del inputs, dbg, audio
     torch.cuda.empty_cache()
     entries["dft"] = check_dft()
     entries.update(check_formant_scans())
@@ -730,7 +745,8 @@ def phase_split(stamps_fn, phases, R, what, reps=5):
     R rows, the run of `reps` with the median span: for each phase the
     share of the CTAs' cycles and the mean cycles a row; the kernel's span,
     the mean lifetime of a CTA, the mean number of CTAs resident (their
-    lifetimes over the span) and the SM clock the stamps imply.  Prints
+    lifetimes over the span), how far apart the CTAs start and how far
+    apart they end, and the SM clock the stamps imply.  Prints
     them after `what` and returns them as a dict."""
     import torch
     P = len(phases)
@@ -749,14 +765,17 @@ def phase_split(stamps_fn, phases, R, what, reps=5):
                              zip(phases, cyc.sum(0) / R)},
                span_us=span / 1e3, cta_us=float(life.mean()) / 1e3,
                ctas=int(st.shape[0]), resident=float(life.sum() / span),
-               ghz=float(cyc.sum() / life.sum()))
+               ghz=float(cyc.sum() / life.sum()),
+               starts_us=float(np.ptp(st[:, P])) / 1e3,
+               ends_us=float(np.ptp(st[:, P + 1])) / 1e3)
     print(f"{what} ({R} rows, {out['ctas']} CTAs, timed entry): " + ", ".join(
         f"{k} {100 * v:.1f}% ({out['cycles_a_row'][k]:.0f} cycles a row)"
         for k, v in split.items())
           + f"; span {out['span_us']:.1f} us, a CTA lives "
           f"{out['cta_us']:.2f} us, {out['resident']:.1f} CTAs resident on "
-          f"average ({out['resident'] / sms:.2f} an SM of {sms}), clock "
-          f"{out['ghz']:.2f} GHz")
+          f"average ({out['resident'] / sms:.2f} an SM of {sms}), the CTAs "
+          f"starting within {out['starts_us']:.2f} us and ending within "
+          f"{out['ends_us']:.2f} us, clock {out['ghz']:.2f} GHz")
     return out
 
 
@@ -871,6 +890,24 @@ def check_peaks_map(energy, smoothed, tf, ltf, model, audio):
                 bound=bound, render_ms=in_render, phases=split["phases"])
 
 
+def split_bounds(energy, smoothed, n_valid, nB):
+    """The least time of G's runs entry and out entry on these rows (R, B
+    from energy; n_valid peaks; nB blocks): {name: (ms, "bytes" or
+    "operations")}."""
+    R, B = energy.shape
+    nseg = B // 2 + 2
+    n_above = int((energy > smoothed).sum())
+    return {
+        # two planes read, two [R, nseg] planes and the counts written;
+        # the run sums' multiply and two adds a bin, 3 flops a peak
+        "peaks_runs": bound_ms(4 * (2 * R * B + 2 * R * nseg + R),
+                               3 * n_above + 3 * n_valid),
+        # the valid slots of peak_in and mapped, the counts and the shifts
+        # read, four planes written
+        "peaks_out": bound_ms(4 * (2 * n_valid + R + 2 * nB + 4 * R * B),
+                              5 * n_valid + 19 * R * B)}
+
+
 def check_peaks_split(energy, smoothed, tf, ltf, model, audio):
     """G split around a custom map, on the pitch+12 render's planner inputs
     and on the edge rows of peaks_edge_rows at B = 512, 1000, 4096 and
@@ -881,8 +918,9 @@ def check_peaks_split(energy, smoothed, tf, ltf, model, audio):
     every invalid slot; the two entries around that callable give the
     one-launch G's four planes.  Times each entry alone, back to back and
     inside a render of the custom tonality cell, its plain version, and
-    the callable; splits each by phase (their timed entries).  Returns
-    {name: entry}."""
+    the callable; splits each by phase (their timed entries) and reads its
+    CTAs resident an SM and its registers a thread.  Returns {name:
+    entry}."""
     import torch
     from signalsmith_stretch_torch.ops import peaks
     controls, consts = model.controls, model.plan.consts
@@ -949,37 +987,32 @@ def check_peaks_split(energy, smoothed, tf, ltf, model, audio):
     peak_in, avg_freq, n_peaks = runs
     mapped = fn(avg_freq)
     out_args = (peak_in, mapped, n_peaks, tf, ltf, B, consts)
-    runs_split = phase_split(
-        lambda: peaks.runs_stamps(energy, smoothed, consts),
-        peaks.RUNS_PHASES, R, f"G runs entry phase split {(R, B)}")
-    out_split = phase_split(lambda: peaks.out_stamps(*out_args),
-                            peaks.OUT_PHASES, R,
-                            f"G out entry phase split {(R, B)}")
+    splits = {
+        "peaks_runs": phase_split(
+            lambda: peaks.runs_stamps(energy, smoothed, consts),
+            peaks.RUNS_PHASES, R, f"G runs entry phase split {(R, B)}"),
+        "peaks_out": phase_split(lambda: peaks.out_stamps(*out_args),
+                                 peaks.OUT_PHASES, R,
+                                 f"G out entry phase split {(R, B)}")}
+    occupancy = peaks.split_occupancy(B)
     custom_model, _ = _model(CUSTOM_TONALITY, BATCH)
-    in_render = {k: render_kernel_ms(custom_model, audio, k)
-                 for k in ("peaks_runs_kernel", "peaks_out_kernel")}
+    in_render = {k: render_kernel_ms(custom_model, audio, f"{k}_kernel")
+                 for k in ("peaks_runs", "peaks_out")}
     n_valid = int(n_peaks.sum())
+    bounds = split_bounds(energy, smoothed, n_valid, tf.shape[0])
     entries = {}
-    for name, call, plain, nbytes, flops, err, split, kernel in (
+    for name, call, plain, err in (
             ("peaks_runs", lambda: peaks.peak_runs(energy, smoothed, consts),
              lambda: peaks.peak_runs_plain(energy, smoothed, consts),
-             # two planes read, two [R, nseg] planes and the counts written
-             4 * (2 * R * B + 2 * R * nseg + R),
-             3 * int((energy > smoothed).sum()) + 3 * n_valid, err_runs,
-             runs_split, "peaks_runs_kernel"),
+             err_runs),
             ("peaks_out", lambda: peaks.output_positions(*out_args),
-             lambda: peaks.output_positions_plain(*out_args),
-             # the valid slots of peak_in and mapped, the counts and the
-             # shifts read, four planes written
-             4 * (2 * n_valid + R + 2 * tf.shape[0] + 4 * R * B),
-             5 * n_valid + 19 * R * B, err_out, out_split,
-             "peaks_out_kernel")):
-        bound = bound_ms(nbytes, flops)
+             lambda: peaks.output_positions_plain(*out_args), err_out)):
         entries[name] = dict(
             max_abs_err=err, ms=cuda_ms(call, KERNEL_REPS),
             ms_b2b=cuda_ms_b2b(call, KERNEL_REPS),
-            plain_ms=cuda_ms(plain, PLAIN_REPS), bound=bound,
-            render_ms=in_render[kernel], phases=split["phases"])
+            plain_ms=cuda_ms(plain, PLAIN_REPS), bound=bounds[name],
+            render_ms=in_render[name], phases=splits[name]["phases"],
+            ctas_per_sm=occupancy[name][0], registers=occupancy[name][1])
     callable_ms = cuda_ms(lambda: fn(avg_freq), KERNEL_REPS)
     custom_ms = cuda_ms(lambda: peaks.peaks_positions_custom(
         energy, smoothed, tf, ltf, fn, consts), KERNEL_REPS)
@@ -990,7 +1023,8 @@ def check_peaks_split(energy, smoothed, tf, ltf, model, audio):
               f"{e['ms_b2b']:.4f} ms back to back, {e['render_ms']:.4f} ms "
               f"of device time in a {CUSTOM_TONALITY[0]} render; plain "
               f"{e['plain_ms']:.3f} ms; bound {e['bound'][0]:.4f} ms "
-              f"({e['bound'][1]})")
+              f"({e['bound'][1]}); {e['ctas_per_sm']} CTAs resident an SM, "
+              f"{e['registers']} registers a thread")
     print(f"G split around the callable: runs + callable + out "
           f"{custom_ms:.4f} ms (the callable alone on [{R}, {nseg}] "
           f"{callable_ms:.4f} ms), the one-launch G {one_ms:.4f} ms, each a "
@@ -2310,6 +2344,220 @@ def prior_block_sweep(path):
                           "lead_changes": dbg["lead_changes"]} | res))
 
 
+# an occupancy query for an earlier peaks.cu that has none, whose runs and
+# out entries both allocate the one-launch G's Layout (the first split's)
+PRIOR_PEAKS_PROBE = r"""
+template <class Kernel>
+static int prior_occupancy(Kernel kernel, int bytes, int* out) {
+  int dev = 0, most = 0;
+  cudaFuncAttributes a;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], kernel, PEAKS_THREADS, bytes);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess) out[1] = a.numRegs;
+  return (int)err;
+}
+extern "C" int sst_peaks_split_occupancy(int B, int* out) {
+  int err = prior_occupancy(peaks_runs_kernel<4, false>,
+                            4 * Layout(B).words(), out);
+  if (!err)
+    err = prior_occupancy(peaks_out_kernel<4, false>, 4 * Layout(B).words(),
+                          out + 2);
+  return err;
+}
+"""
+# the phases of the first split's timed entries, by their count
+PRIOR_SPLIT_PHASES = {"runs": {4: ("wait", "flags", "runs", "write")},
+                      "out": {3: ("peaks", "prefix", "map")}}
+
+
+def prior_peaks_split(path):
+    """`--prior-peaks-split PATH`: G's runs and out entries (and the
+    one-launch G) against those of an earlier peaks.cu at PATH with the
+    same C entries (with or without the row queue argument), built into
+    build/prior/ and called through the same wrappers: on the pitch+12
+    cell's planner rows and on peaks_edge_rows at B = 512, 1000, 4096 and
+    8192 the earlier and the new entries bit-equal (runs: peak_in,
+    avg_freq and n_peaks; out: the four planes on the runs' outputs
+    through pitch+12's map as a callable; G: the four planes); then on the
+    planner rows each timed in turns (earlier, new, new, earlier), alone
+    and back to back, also at one row as in a stream block, beside the
+    card's own streams over the same bytes (torch.add, zero_); each split
+    entry's phase split (its timed entry), CTAs resident an SM and
+    registers a thread.  Prints one JSON line."""
+    import contextlib
+    import ctypes
+    import re
+    import torch
+    from signalsmith_stretch_torch.ops import _build, peaks
+    header()
+    build_kernels()
+    src = open(path).read()
+    d = os.path.join(ROOT, "build", "prior")
+    os.makedirs(d, exist_ok=True)
+    cu, so = os.path.join(d, "peaks_prior.cu"), os.path.join(
+        d, "libpeaks_prior.so")
+    with open(cu, "w") as f:
+        f.write(src + ("" if "sst_peaks_split_occupancy" in src
+                       else PRIOR_PEAKS_PROBE))
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise SystemExit(f"the earlier peaks.cu did not build:\n{r.stdout}"
+                         f"{r.stderr}")
+    lib = ctypes.CDLL(so)
+    # the queue pointer's place in the new entries' arguments
+    queue_arg = {"peaks_out": 11, "peaks_out_timed": 11}
+    takes_queue = "int* queue" in src
+    prior = {}
+    for name in ("peaks", "peaks_runs", "peaks_runs_timed", "peaks_out",
+                 "peaks_out_timed", "peaks_occupancy"):
+        _, symbol, argtypes = _build.ENTRY[name]
+        fn = getattr(lib, symbol)
+        fn.restype = ctypes.c_int
+        if name in queue_arg and not takes_queue:
+            i = queue_arg[name]
+            fn.argtypes = argtypes[:i] + argtypes[i + 1:]
+            fn = (lambda f, i: lambda *a: f(*a[:i], *a[i + 1:]))(fn, i)
+        else:
+            fn.argtypes = argtypes
+        prior[name] = fn
+    n_phases = {k: int(re.search(rf"#define {k.upper()}_PHASES (\d+)",
+                                 src).group(1)) for k in ("runs", "out")}
+    names = {k: PRIOR_SPLIT_PHASES[k].get(
+        n, tuple(f"phase {i + 1}" for i in range(n)))
+        for k, n in n_phases.items()}
+
+    @contextlib.contextmanager
+    def build_of(what):
+        """The wrappers call the earlier entries inside `earlier`."""
+        saved = dict(_build._entries)
+        if what == "earlier":
+            _build._entries.update(prior)
+        try:
+            yield
+        finally:
+            _build._entries.clear()
+            _build._entries.update(saved)
+
+    def prior_stamps(kind, launch, R):
+        P = n_phases[kind]
+        stamps = torch.zeros((R, P + 3), dtype=torch.int64, device=DEVICE)
+        with build_of("earlier"):
+            launch(stamps.data_ptr())
+        return stamps[stamps[:, P + 1] > 0]
+
+    model, _, _, dbg = mapped_planner()
+    controls, consts = model.controls, model.plan.consts
+    fmap = tonality_map(controls)
+    energy, smoothed = dbg["energy"], dbg["smoothed"]
+    tf, ltf = dbg["shifts"]
+    cases = [("pitch+12 planner rows", energy, smoothed, tf, ltf)]
+    for width in (512, 1000, 4096, 8192):
+        e, s = (torch.as_tensor(a, device=DEVICE)
+                for a in peaks_edge_rows(width))
+        cases.append((f"edge rows at B = {width}", e, s, tf[:e.shape[0]],
+                      ltf[:e.shape[0]]))
+    for what, e, s, t1, t2 in cases:
+        B = e.shape[1]
+        outs = {}
+        for build in ("earlier", "new"):
+            with build_of(build):
+                runs = peaks.peak_runs(e, s, consts)
+                args = (runs[0], fmap(runs[1]), runs[2], t1, t2, B, consts)
+                outs[build] = (runs, peaks.output_positions(*args),
+                               peaks.peaks_positions(e, s, t1, t2, controls,
+                                                     consts))
+        for entry, new, old in zip(("runs", "out", "one-launch G"),
+                                   outs["new"], outs["earlier"]):
+            if not all(same_bits(a, b) for a, b in zip(new, old)):
+                raise SystemExit(f"{what}: the {entry} entry differs from "
+                                 f"the earlier one")
+        print(f"G split against the earlier entries, {what} "
+              f"{tuple(e.shape)}: runs, out and the one-launch G bit-equal")
+
+    R, B = energy.shape
+    runs = peaks.peak_runs(energy, smoothed, consts)
+    mapped = fmap(runs[1])
+    out_args = (runs[0], mapped, runs[2], tf, ltf, B, consts)
+    one_args = (runs[0][:1], mapped[:1], runs[2][:1], tf[:1], ltf[:1], B,
+                consts)
+    map_args = (energy, smoothed, tf, ltf, controls, consts)
+    calls = {
+        "peaks_runs": lambda: peaks.peak_runs(energy, smoothed, consts),
+        "peaks_out": lambda: peaks.output_positions(*out_args),
+        "peaks_map": lambda: peaks.peaks_positions(*map_args),
+        "peaks_runs one row": lambda: peaks.peak_runs(
+            energy[:1], smoothed[:1], consts),
+        "peaks_out one row": lambda: peaks.output_positions(*one_args)}
+    turns = {}
+    for name, f in calls.items():
+        res = {"earlier": dict(ms=[], ms_b2b=[]),
+               "new": dict(ms=[], ms_b2b=[])}
+        for what in ("earlier", "new", "new", "earlier"):
+            with build_of(what):
+                res[what]["ms"].append(cuda_ms(f, KERNEL_REPS))
+                res[what]["ms_b2b"].append(cuda_ms_b2b(f, KERNEL_REPS))
+        turns[name] = res
+        print(f"{name}: " + "; ".join(
+            f"{w} alone {v['ms']}, back to back {v['ms_b2b']} ms"
+            for w, v in res.items()))
+    # the card's own streams over the same bytes, back to back: the runs
+    # entry's two planes read and one plane's bytes written (torch.add), the
+    # out entry's four planes written (zero_)
+    total = torch.empty_like(energy)
+    planes = torch.empty((R, 4, B), dtype=torch.float32, device=DEVICE)
+    floors = {"peaks_runs": cuda_ms_b2b(
+        lambda: torch.add(energy, smoothed, out=total), KERNEL_REPS),
+        "peaks_out": cuda_ms_b2b(planes.zero_, KERNEL_REPS)}
+    print(f"streams over the same bytes, back to back: torch.add of the two "
+          f"planes {floors['peaks_runs']:.4f} ms, zero_ of four planes "
+          f"{floors['peaks_out']:.4f} ms")
+    del total, planes
+    splits = {"earlier": {
+        "peaks_runs": phase_split(
+            lambda: prior_stamps("runs", lambda st: peaks._launch_runs(
+                "peaks_runs_timed", energy, smoothed, consts, st), R),
+            names["runs"], R, f"earlier G runs entry {(R, B)}"),
+        "peaks_out": phase_split(
+            lambda: prior_stamps("out", lambda st: peaks._launch_out(
+                "peaks_out_timed", *out_args, st), R),
+            names["out"], R, f"earlier G out entry {(R, B)}")}, "new": {
+        "peaks_runs": phase_split(
+            lambda: peaks.runs_stamps(energy, smoothed, consts),
+            peaks.RUNS_PHASES, R, f"new G runs entry {(R, B)}"),
+        "peaks_out": phase_split(lambda: peaks.out_stamps(*out_args),
+                                 peaks.OUT_PHASES, R,
+                                 f"new G out entry {(R, B)}")}}
+    occ = {}
+    for what in ("earlier", "new"):
+        with build_of(what):
+            occ[what] = peaks.split_occupancy(B)
+        print(f"{what}: " + ", ".join(f"{k} {c} CTAs resident an SM, {g} "
+                                      f"registers a thread"
+                                      for k, (c, g) in occ[what].items()))
+    bounds = split_bounds(energy, smoothed, int(runs[2].sum()),
+                          tf.shape[0])
+    print(smi_line())
+    print(json.dumps({"prior_peaks_split": path, "shape": [R, B],
+                      "bound_ms": {k: v[0] for k, v in bounds.items()},
+                      "turns": turns, "stream_ms": floors,
+                      "occupancy": occ,
+                      "phases": {w: {k: v["phases"] for k, v in d.items()}
+                                 for w, d in splits.items()},
+                      "spread_us": {w: {k: [v["starts_us"], v["ends_us"]]
+                                        for k, v in d.items()}
+                                    for w, d in splits.items()}}))
+
+
 # ---------------------------------------------------------------------------
 # Phase 9: the scheduler (StretchNode) and the worklet host (WorkletHost)
 # ---------------------------------------------------------------------------
@@ -2729,6 +2977,8 @@ def main():
         return floor_only()
     if sys.argv[1:2] == ["--prior-block-sweep"] and len(sys.argv) == 3:
         return prior_block_sweep(sys.argv[2])
+    if sys.argv[1:2] == ["--prior-peaks-split"] and len(sys.argv) == 3:
+        return prior_peaks_split(sys.argv[2])
     if sys.argv[1:] == ["--scheduler-parallel"]:
         header()
         build_kernels()
@@ -2768,7 +3018,9 @@ def main():
                           bound_ms=e["bound"][0], bound_by=e["bound"][1],
                           library_ms=e.get("library_ms"),
                           chain_ms=e.get("chain_ms"),
-                          chain_floor_ms=e.get("chain_floor_ms")))
+                          chain_floor_ms=e.get("chain_floor_ms"))
+                     | {k: e[k] for k in ("phases", "ctas_per_sm",
+                                          "registers") if k in e})
     # each kernel at the stream's shapes (one row), by stream
     for t in table:
         rows = stream_rows.get("peaks_split" if t["name"] == "peaks_runs"

@@ -61,17 +61,39 @@
 //          it, for the next row), and writes the four planes.
 //
 // A custom frequency map (a Python callable) cannot run inside the kernel,
-// so it splits G around the callable into two entries over the same phases
-// (plain versions ops/peaks.peak_runs_plain and output_positions_plain):
-//   runs (sst_peaks_runs)   wait, flags and runs as above, with no map and
-//          no histogram; then a write phase stores each row's peak_in and
-//          avg_freq = (avg + 0.5) / N [R, nseg] (nseg = B / 2 + 2, the slots
-//          from n_peaks on 0) and n_peaks [R] int32;
-//   out (sst_peaks_out)     per row, the n_peaks[r] peaks of peak_in and of
+// so it splits G around the callable into two entries (plain versions
+// ops/peaks.peak_runs_plain and output_positions_plain), each a persistent
+// grid of its own with a shared-memory layout sized for its own work (no
+// histogram in the runs entry, no energy in the out entry), bound by bytes
+// (runs: 0.039 ms, out: 0.056 ms at [2680, 4096]; chip_smoke.split_bounds
+// counts them).  Each runs at two CTAs an SM at B = 4096, held there by
+// its registers: at three, with registers capped to 40, each entry ran
+// slower on an H100.
+//   runs (sst_peaks_runs)   energy and smoothed double-buffered as above,
+//          rows walked as above, two barriers a row: wait, then flags;
+//          once flags have given the row's n_peaks, every thread stores
+//          zeros to the slots from n_peaks to nseg = B / 2 + 2 of peak_in
+//          and avg_freq [R, nseg] (8-byte stores where the row allows)
+//          while the runs phase sums each run and its thread writes the
+//          run's own slot, avg and (avg + 0.5) / N, straight to global
+//          memory; n_peaks [R] int32 once a row.  A slot below n_peaks is
+//          written by its run alone, one from n_peaks on by the fill alone.
+//   out (sst_peaks_out)     the CTAs claim their rows from a queue a row
+//          ahead (claim_row), so a CTA whose rows cost less takes more of
+//          them.  Per row, the n_peaks[r] valid slots of peak_in and
 //          mapped [R, nseg] (the callable's output; later slots are never
-//          read, so NaN there is harmless), peak_out = mapped * N - 0.5
-//          and its histogram count, then prefix and map as above.
-// The one-launch entry keeps serving the built-in maps.
+//          read, so NaN there is harmless) arrive by cp.async in one half
+//          of a double buffer while the previous row runs, its count read
+//          a row ahead (clamped to [0, (B + 1) / 2]).  Three barriers a
+//          row, each after a phase: wait; peaks, peak_out = mapped * N -
+//          0.5 in place and its histogram count (none for cell B, which no
+//          k[b], b < B, counts), from shared memory only; prefix, the
+//          pairs' three tables (the fourth, the previous peak's output
+//          band, is peak_out itself); then map as above.
+// The one-launch entry keeps serving the built-in maps.  The split calls
+// G's row loads, flags and runs helpers as they are, and forks the two it
+// needed otherwise (split_prefix_phase, split_map_phase: the same
+// operation order).
 #include <cuda_runtime.h>
 
 #define PEAKS_THREADS 512
@@ -79,8 +101,8 @@
 
 // the timed entries' phases (ops/peaks.PHASES, RUNS_PHASES, OUT_PHASES)
 #define PEAKS_PHASES 5
-#define RUNS_PHASES 4
-#define OUT_PHASES 3
+#define RUNS_PHASES 3
+#define OUT_PHASES 4
 
 // asynchronous copies device memory -> shared memory (sm_80+)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -91,6 +113,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
                "l"(src));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -246,6 +273,10 @@ struct Tables {
     seg_starts = reinterpret_cast<int*>(above + L.AW);
     seg_total = seg_starts + ((L.NS + 3) & ~3);
   }
+  // the runs entry's: only the above-words and the start counts
+  __device__ Tables(unsigned* above_, int* seg_starts_)
+      : H(nullptr), peak_in(nullptr), peak_out(nullptr), above(above_),
+        seg_starts(seg_starts_), seg_total(nullptr) {}
 };
 
 // --- flags: the above-words and each segment's run starts -----------------
@@ -509,6 +540,45 @@ peaks_map_kernel(const float* __restrict__ energy,
   if (TIMED && tid == 0) end_stamps(stamps, cycles, PEAKS_PHASES, gt0);
 }
 
+// --- G split around a custom map ------------------------------------------
+// the runs entry's shared memory, in 4-byte words: the double buffer, the
+// above-words with the zero word past them, the segments' start counts
+struct RunsLayout {
+  int Bp, AW, NS, W;
+  __host__ __device__ RunsLayout(int B) {
+    Bp = (B + 3) & ~3;
+    NS = (B + 255) >> 8;
+    W = (B + 31) >> 5;
+    AW = (W + 1 + 3) & ~3;
+  }
+  __host__ __device__ int words() const {
+    return 4 * Bp + AW + ((NS + 3) & ~3);
+  }
+};
+
+// slots [n0, n1) of two rows a and b set to 0: 8-byte stores where both
+// rows lie alike against 8 bytes, one 4-byte store before and after
+__device__ __forceinline__ void zero_slots(float* a, float* b, int n0, int n1,
+                                           int tid) {
+  int i = n0;
+  if (((reinterpret_cast<size_t>(a) ^ reinterpret_cast<size_t>(b)) & 7) ==
+      0) {
+    if ((reinterpret_cast<size_t>(a + i) & 4) && i < n1) {
+      if (tid == 0) a[i] = b[i] = 0.f;
+      ++i;
+    }
+    const int pairs = (n1 - i) >> 1;
+    float2* a2 = reinterpret_cast<float2*>(a + i);
+    float2* b2 = reinterpret_cast<float2*>(b + i);
+    for (int j = tid; j < pairs; j += PEAKS_THREADS) {
+      a2[j] = make_float2(0.f, 0.f);
+      b2[j] = make_float2(0.f, 0.f);
+    }
+    i += 2 * pairs;
+  }
+  for (int j = i + tid; j < n1; j += PEAKS_THREADS) a[j] = b[j] = 0.f;
+}
+
 // the runs entry: peak_in and avg_freq [R, nseg] (slots from n_peaks on 0)
 // and n_peaks [R]
 template <int VEC, bool TIMED>
@@ -520,8 +590,9 @@ peaks_runs_kernel(const float* __restrict__ energy,
                   int* __restrict__ n_peaks_out, int R, int B, float inv_N,
                   long long* stamps) {
   extern __shared__ __align__(16) float smem[];
-  const Layout L(B);
-  const Tables t(smem, L);
+  const RunsLayout L(B);
+  unsigned* above = reinterpret_cast<unsigned*>(smem + 4 * L.Bp);
+  const Tables t(above, reinterpret_cast<int*>(above + L.AW));
   const int NS = L.NS, W = L.W, nseg = B / 2 + 2;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   unsigned long long gt0 = 0;
@@ -531,14 +602,15 @@ peaks_runs_kernel(const float* __restrict__ energy,
     clk = clock64();
   }
 
-  int row = blockIdx.x;
-  if (row < R)
-    load_row<VEC>(smem, smem + L.Bp, energy + (long long)row * B,
-                  smoothed + (long long)row * B, B, tid);
+  int row = blockIdx.x;                     // < R: the grid is at most R
+  load_row<VEC>(smem, smem + L.Bp, energy + (long long)row * B,
+                smoothed + (long long)row * B, B, tid);
   for (int it = 0; row < R; ++it, row += gridDim.x) {
     float* E = smem + (it & 1) * 2 * L.Bp;
     float* S = E + L.Bp;
     cp_async_wait_all();
+    // every thread is past the previous row's runs: its buffer, the
+    // above-words and the counts are free
     __syncthreads();
     STAMP(1)
     const int next = row + gridDim.x;
@@ -552,27 +624,173 @@ peaks_runs_kernel(const float* __restrict__ energy,
     __syncthreads();
     STAMP(2)
 
-    // the frequency goes where the one-launch G keeps the output band
-    const int n_peaks = runs_phase(
-        E, t, B, NS, tid, lane, warp, [&](int id, float avg) {
-          t.peak_in[id] = avg;
-          t.peak_out[id] = (avg + 0.5f) * inv_N;     // N a power of two
-        });
-    __syncthreads();
-    STAMP(3)
-
-    // --- write: the row's slots, coalesced ---------------------------------
+    // the row's count, then its empty slots while the runs fill the others
     float* pin = peak_in_out + (long long)row * nseg;
     float* fq = avg_freq_out + (long long)row * nseg;
-    for (int i = tid; i < nseg; i += PEAKS_THREADS) {
-      pin[i] = i < n_peaks ? t.peak_in[i] : 0.f;
-      fq[i] = i < n_peaks ? t.peak_out[i] : 0.f;
-    }
+    int n_peaks;
+    segment_base(t.seg_starts, NS, 0, lane, &n_peaks);
     if (tid == 0) n_peaks_out[row] = n_peaks;
+    zero_slots(pin, fq, n_peaks, nseg, tid);
+    runs_phase(E, t, B, NS, tid, lane, warp, [&](int id, float avg) {
+      pin[id] = avg;
+      fq[id] = (avg + 0.5f) * inv_N;               // N a power of two
+    });
     if (TIMED) __syncthreads();
-    STAMP(4)
+    STAMP(3)
   }
   if (TIMED && tid == 0) end_stamps(stamps, cycles, RUNS_PHASES, gt0);
+}
+
+// The out entry's row queue: queue[0] counts the rows claimed past the first
+// gridDim.x (a CTA's first row is its blockIdx.x), queue[1] the CTAs done.
+// Both are 0 when a launch starts; the last CTA done sets them to 0 again
+// (every claim of the launch is in by then), for the next launch on the
+// stream.  A CTA claims its next row a row ahead, so the rows go to the
+// CTAs as they free up, whatever each row costs.
+__device__ __forceinline__ int claim_row(int* queue) {
+  return (int)gridDim.x + atomicAdd(queue, 1);
+}
+__device__ __forceinline__ void release_queue(int* queue, int tid) {
+  if (tid == 0 && atomicAdd(queue + 1, 1) == (int)gridDim.x - 1) {
+    queue[0] = 0;
+    queue[1] = 0;
+  }
+}
+
+// the out entry's shared memory, in 4-byte words: the double buffer of the
+// valid slots (peak_in, then mapped, which becomes peak_out in place; PR
+// words each), the pairs' three tables (PR each), the histogram (its
+// segments: a peak whose cell is B counts in no k[b], b < B, and is not
+// counted) and the segments' totals
+struct OutLayout {
+  int PR, HW, NS;
+  __host__ __device__ OutLayout(int B) {
+    NS = (B + 255) >> 8;
+    HW = NS * 256;
+    PR = (((B + 1) / 2) + 3) & ~3;
+  }
+  __host__ __device__ int words() const {
+    return 7 * PR + HW + ((NS + 3) & ~3);
+  }
+};
+
+// the first n slots of a row of peak_in and of mapped into shared memory
+// by cp.async, 8 bytes at a time where both rows allow (slot n too when n
+// is odd: it lies inside the row, B / 2 + 2 > (B + 1) / 2, and is never
+// read), else 4
+__device__ __forceinline__ void stage_slots(float* di, float* dm,
+                                            const float* si, const float* sm,
+                                            int n, int tid) {
+  if (((reinterpret_cast<size_t>(si) | reinterpret_cast<size_t>(sm)) & 7) ==
+      0) {
+    for (int j = tid; j < (n + 1) >> 1; j += PEAKS_THREADS) {
+      cp_async8(di + 2 * j, si + 2 * j);
+      cp_async8(dm + 2 * j, sm + 2 * j);
+    }
+  } else {
+    for (int i = tid; i < n; i += PEAKS_THREADS) {
+      cp_async4(di + i, si + i);
+      cp_async4(dm + i, sm + i);
+    }
+  }
+  cp_async_commit();
+}
+
+// a row's valid slots: its count clamped to [0, (B + 1) / 2], the most
+// peaks a row holds and the size of the tables
+__device__ __forceinline__ int valid_slots(const int* n_peaks, int row,
+                                           int B) {
+  return min(max(n_peaks[row], 0), (B + 1) / 2);
+}
+
+// prefix_phase for the split: the pairs' range_scale, out_offset and
+// out_scale in three tables of P words (pair k - 1 between peaks k - 1 and
+// k; past the last: input 0, output +inf; its prev_o is peak_out[k - 1]
+// itself), then each segment's inclusive prefix and its total
+__device__ __forceinline__ void split_prefix_phase(
+    const float* pin, const float* pout, float* pairs, int P, int* H,
+    int* seg_total, int n_peaks, int NS, int tid, int lane, int warp) {
+  const int NW = PEAKS_THREADS >> 5;
+  for (int k = tid + 1; k <= n_peaks; k += PEAKS_THREADS) {
+    const float inf = __int_as_float(0x7f800000);
+    const float prev_o = pout[k - 1];
+    const float prev_in = pin[k - 1];
+    const float next_o = k < n_peaks ? pout[k] : inf;
+    const float next_in = k < n_peaks ? pin[k] : 0.f;
+    pairs[k - 1] = 1.f / (next_o - prev_o);                 // range_scale
+    pairs[P + k - 1] = prev_in - prev_o;
+    pairs[2 * P + k - 1] = ((next_in - next_o) - prev_in) + prev_o;
+  }
+  for (int s = warp; s < NS; s += NW) {
+    int4* h = reinterpret_cast<int4*>(H + (s << 8) + (lane << 3));
+    int4 u = h[0], v = h[1];
+    u.y += u.x; u.z += u.y; u.w += u.z;
+    v.x += u.w; v.y += v.x; v.z += v.y; v.w += v.z;
+    const int incl = warp_inclusive_scan(v.w, lane);
+    const int ex = incl - v.w;
+    u.x += ex; u.y += ex; u.z += ex; u.w += ex;
+    v.x += ex; v.y += ex; v.z += ex; v.w += ex;
+    h[0] = u;
+    h[1] = v;
+    if (lane == 31) seg_total[s] = incl;
+  }
+}
+
+// map_phase for the split, on split_prefix_phase's tables
+template <int VEC>
+__device__ __forceinline__ void split_map_phase(
+    const float* pin, const float* pout, const float* pairs, int P, int* H,
+    const int* seg_total, int n_peaks, int B, int NS, float tf_r,
+    float ltf_r, float* out0, float* grad_row, int tid, int lane, int warp) {
+  RowPeaks p;
+  p.prev_o = pout;
+  p.range_scale = pairs;
+  p.out_offset = pairs + P;
+  p.out_scale = pairs + 2 * P;
+  p.n = n_peaks;
+  const int top = max(n_peaks - 1, 0);
+  p.first_in = n_peaks > 0 ? pin[0] : 0.f;
+  p.first_out = n_peaks > 0 ? pout[0] : __int_as_float(0x7f800000);
+  p.last_in = n_peaks > 0 ? pin[top] : 0.f;
+  p.last_out = n_peaks > 0 ? pout[top] : 0.f;
+  p.top_start = max((int)p.last_out, 0);   // truncation, as .to(int32)
+  float* out1 = out0 + B;
+  float* out2 = out1 + B;
+  const int nq = (B + VEC - 1) / VEC;
+  for (int q0 = 0; q0 < nq; q0 += PEAKS_THREADS) {
+    // a warp's bins lie in one segment (32 * VEC divides 256)
+    const int s = ((q0 + (warp << 5)) * VEC) >> 8;
+    if (s >= NS) break;                     // the same in every lane
+    int unused;
+    const int kbase = segment_base(seg_total, NS, s, lane, &unused);
+    const int q = q0 + tid;
+    if (q >= nq) continue;
+    if (VEC == 4) {
+      const int4 k4 = reinterpret_cast<const int4*>(H)[q];
+      reinterpret_cast<int4*>(H)[q] = make_int4(0, 0, 0, 0);
+      float4 ib, g;
+      const int b = q << 2;
+      map_bin(p, b, k4.x + kbase, &ib.x, &g.x);
+      map_bin(p, b + 1, k4.y + kbase, &ib.y, &g.y);
+      map_bin(p, b + 2, k4.z + kbase, &ib.z, &g.z);
+      map_bin(p, b + 3, k4.w + kbase, &ib.w, &g.w);
+      reinterpret_cast<float4*>(out0)[q] = ib;
+      reinterpret_cast<float4*>(out1)[q] =
+          make_float4(ib.x - tf_r, ib.y - tf_r, ib.z - tf_r, ib.w - tf_r);
+      reinterpret_cast<float4*>(out2)[q] = make_float4(
+          ib.x - ltf_r, ib.y - ltf_r, ib.z - ltf_r, ib.w - ltf_r);
+      reinterpret_cast<float4*>(grad_row)[q] = g;
+    } else {
+      float ib, g;
+      const int kq = H[q];
+      H[q] = 0;
+      map_bin(p, q, kq + kbase, &ib, &g);
+      out0[q] = ib;
+      out1[q] = ib - tf_r;
+      out2[q] = ib - ltf_r;
+      grad_row[q] = g;
+    }
+  }
 }
 
 // the out entry: the output map of n_peaks[r] peaks of peak_in and mapped
@@ -584,11 +802,15 @@ peaks_out_kernel(const float* __restrict__ peak_in_in,
                  const int* __restrict__ n_peaks_in,
                  const float* __restrict__ tf, const float* __restrict__ ltf,
                  float* __restrict__ pos, float* __restrict__ freq_grad,
-                 int R, int B, int nB, float N, long long* stamps) {
+                 int R, int B, int nB, float N, int* __restrict__ queue,
+                 long long* stamps) {
   extern __shared__ __align__(16) float smem[];
-  const Layout L(B);
-  const Tables t(smem, L);
-  const int NS = L.NS, nseg = B / 2 + 2;
+  __shared__ int next_row, next_n;
+  const OutLayout L(B);
+  const int P = L.PR, NS = L.NS, nseg = B / 2 + 2;
+  float* pairs = smem + 4 * P;
+  int* H = reinterpret_cast<int*>(pairs + 3 * P);
+  int* seg_total = H + L.HW;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   unsigned long long gt0 = 0;
   long long clk = 0, cycles[OUT_PHASES] = {};
@@ -597,35 +819,69 @@ peaks_out_kernel(const float* __restrict__ peak_in_in,
     clk = clock64();
   }
 
-  for (int i = tid; i < L.HW; i += PEAKS_THREADS) t.H[i] = 0;
-  for (int row = blockIdx.x; row < R; row += gridDim.x) {
+  for (int i = tid; i < L.HW; i += PEAKS_THREADS) H[i] = 0;
+  int row = blockIdx.x;                     // < R: the grid is at most R
+  int n_peaks = valid_slots(n_peaks_in, row, B);
+  stage_slots(smem, smem + P, peak_in_in + (long long)row * nseg,
+              mapped_in + (long long)row * nseg, n_peaks, tid);
+  if (tid == 0) {
+    next_row = claim_row(queue);
+    next_n = next_row < R ? valid_slots(n_peaks_in, next_row, B) : 0;
+  }
+  for (int it = 0; row < R; ++it) {
+    float* pin = smem + (it & 1) * 2 * P;
+    float* pout = pin + P;                  // mapped, then peak_out
     const int blk = row % nB;
     const float tf_r = tf[blk], ltf_r = ltf[blk];
-    // a row holds at most (B + 1) / 2 peaks, the size of the tables
-    const int n_peaks = min(max(n_peaks_in[row], 0), (B + 1) / 2);
-    // every thread is past the previous row: the tables are free, and the
-    // histogram is zero (the map zeroed its bins below B, the tail below)
-    __syncthreads();
-
-    // --- peaks: the valid slots, their output bands and the histogram ----
-    const float* pin = peak_in_in + (long long)row * nseg;
-    const float* mp = mapped_in + (long long)row * nseg;
-    for (int i = tid; i < n_peaks; i += PEAKS_THREADS)
-      count_peak(t, i, pin[i], mp[i], N, B);
+    cp_async_wait_all();
+    // every thread is past the previous row: its buffer and the pairs'
+    // tables are free, the histogram is zero (the map zeroed its bins
+    // below B as it read them, the tail below), and next_row and next_n
+    // hold the next row and its count
     __syncthreads();
     STAMP(1)
+    const int next = next_row, n_next = next_n;
+    if (next < R) {
+      float* npin = smem + ((it + 1) & 1) * 2 * P;
+      stage_slots(npin, npin + P, peak_in_in + (long long)next * nseg,
+                  mapped_in + (long long)next * nseg, n_next, tid);
+    }
 
-    prefix_phase(t, smem, n_peaks, B, NS, tid, lane, warp);
+    // --- peaks: each output band in place, and its histogram count ------
+    for (int i = tid; i < n_peaks; i += PEAKS_THREADS) {
+      const float out = pout[i] * N - 0.5f;        // count_peak's order
+      const int cell = (int)fminf(fmaxf(ceilf(out), 0.f), (float)B);
+      pout[i] = out;
+      if (cell < B) atomicAdd(&H[cell], 1);
+    }
     __syncthreads();
     STAMP(2)
+    // the row after next, claimed while the prefix goes on (every thread
+    // has read next_row and next_n), and its count during the map
+    int claim = R, n_claim = 0;
+    if (tid == 0 && next < R) claim = claim_row(queue);
 
-    map_phase<VEC>(t, smem, n_peaks, B, NS, tf_r, ltf_r,
-                   pos + (long long)row * 3 * B,
-                   freq_grad + (long long)row * B, tid, lane, warp);
-    for (int i = B + tid; i < L.HW; i += PEAKS_THREADS) t.H[i] = 0;
-    if (TIMED) __syncthreads();
+    split_prefix_phase(pin, pout, pairs, P, H, seg_total, n_peaks, NS, tid,
+                       lane, warp);
+    __syncthreads();
     STAMP(3)
+
+    if (tid == 0 && claim < R) n_claim = valid_slots(n_peaks_in, claim, B);
+    split_map_phase<VEC>(pin, pout, pairs, P, H, seg_total, n_peaks, B, NS,
+                         tf_r, ltf_r, pos + (long long)row * 3 * B,
+                         freq_grad + (long long)row * B, tid, lane, warp);
+    // the prefix's bins from B on, which the map does not read
+    for (int i = B + tid; i < L.HW; i += PEAKS_THREADS) H[i] = 0;
+    if (tid == 0) {
+      next_row = claim;
+      next_n = n_claim;
+    }
+    if (TIMED) __syncthreads();
+    STAMP(4)
+    row = next;
+    n_peaks = n_next;
   }
+  release_queue(queue, tid);
   if (TIMED && tid == 0) end_stamps(stamps, cycles, OUT_PHASES, gt0);
 }
 
@@ -702,7 +958,7 @@ static int launch_runs(const float* energy, const float* smoothed,
                        int B, int N, long long* stamps, void* stream) {
   static Grid g;
   auto kernel = peaks_runs_kernel<VEC, TIMED>;
-  const int bytes = 4 * Layout(B).words();
+  const int bytes = 4 * RunsLayout(B).words();
   int grid = 0;
   const int err = resident_grid(kernel, g, bytes, R, &grid);
   if (err) return err;
@@ -728,16 +984,16 @@ template <int VEC, bool TIMED>
 static int launch_out(const float* peak_in, const float* mapped,
                       const int* n_peaks, const float* tf, const float* ltf,
                       float* pos, float* freq_grad, int R, int B, int nB,
-                      int N, long long* stamps, void* stream) {
+                      int N, int* queue, long long* stamps, void* stream) {
   static Grid g;
   auto kernel = peaks_out_kernel<VEC, TIMED>;
-  const int bytes = 4 * Layout(B).words();
+  const int bytes = 4 * OutLayout(B).words();
   int grid = 0;
   const int err = resident_grid(kernel, g, bytes, R, &grid);
   if (err) return err;
   kernel<<<grid, PEAKS_THREADS, bytes, (cudaStream_t)stream>>>(
       peak_in, mapped, n_peaks, tf, ltf, pos, freq_grad, R, B, nB, (float)N,
-      stamps);
+      queue, stamps);
   return (int)cudaGetLastError();
 }
 
@@ -745,15 +1001,15 @@ template <bool TIMED>
 static int dispatch_out(const float* peak_in, const float* mapped,
                         const int* n_peaks, const float* tf, const float* ltf,
                         float* pos, float* freq_grad, int R, int B, int nB,
-                        int N, long long* stamps, void* stream) {
+                        int N, int* queue, long long* stamps, void* stream) {
   if (R <= 0 || B <= 0) return 0;
   if (nB < 1 || R % nB) return (int)cudaErrorInvalidValue;
   const bool vec = B % 4 == 0 &&
                    ((reinterpret_cast<size_t>(pos) |
                      reinterpret_cast<size_t>(freq_grad)) & 15) == 0;
   return (vec ? launch_out<4, TIMED> : launch_out<1, TIMED>)(
-      peak_in, mapped, n_peaks, tf, ltf, pos, freq_grad, R, B, nB, N, stamps,
-      stream);
+      peak_in, mapped, n_peaks, tf, ltf, pos, freq_grad, R, B, nB, N, queue,
+      stamps, stream);
 }
 
 // energy, smoothed [R, B] f32; tf, ltf [nB] f32 (rows block-major per
@@ -801,13 +1057,16 @@ extern "C" int sst_peaks_runs_timed(const float* energy,
 
 // the out entry: peak_in, mapped [R, B / 2 + 2] f32 and n_peaks [R] int32
 // (the runs entry's outputs, avg_freq through the frequency map), tf, ltf
-// [nB] f32 -> pos [R, 3, B] and freq_grad [R, B] f32, as sst_peaks_map
+// [nB] f32 -> pos [R, 3, B] and freq_grad [R, B] f32, as sst_peaks_map;
+// queue int32 [2], zero (the row queue, claim_row: every launch leaves it
+// zero; launches that share one run in turn, on one stream)
 extern "C" int sst_peaks_out(const float* peak_in, const float* mapped,
                              const int* n_peaks, const float* tf,
                              const float* ltf, float* pos, float* freq_grad,
-                             int R, int B, int nB, int N, void* stream) {
+                             int R, int B, int nB, int N, int* queue,
+                             void* stream) {
   return dispatch_out<false>(peak_in, mapped, n_peaks, tf, ltf, pos,
-                             freq_grad, R, B, nB, N, nullptr, stream);
+                             freq_grad, R, B, nB, N, queue, nullptr, stream);
 }
 
 // the same with the stamps, [min(R, CTAs resident), OUT_PHASES + 3]
@@ -815,7 +1074,45 @@ extern "C" int sst_peaks_out_timed(const float* peak_in, const float* mapped,
                                    const int* n_peaks, const float* tf,
                                    const float* ltf, float* pos,
                                    float* freq_grad, int R, int B, int nB,
-                                   int N, long long* stamps, void* stream) {
+                                   int N, int* queue, long long* stamps,
+                                   void* stream) {
   return dispatch_out<true>(peak_in, mapped, n_peaks, tf, ltf, pos,
-                            freq_grad, R, B, nB, N, stamps, stream);
+                            freq_grad, R, B, nB, N, queue, stamps, stream);
+}
+
+// a kernel's CTAs resident an SM at `bytes` of dynamic shared memory and
+// its registers a thread, into out[0] and out[1]; its dynamic limit goes
+// to the card's most beside its static shared memory, which every launch's
+// own size fits
+template <class Kernel>
+static int occupancy(Kernel kernel, int bytes, int* out) {
+  int dev = 0, most = 0;
+  cudaFuncAttributes a;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               most - (int)a.sharedSizeBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], kernel, PEAKS_THREADS, bytes);
+  if (err == cudaSuccess) out[1] = a.numRegs;
+  return (int)err;
+}
+
+// the split's entries as the main path launches them at width B (16-byte
+// rows): out[0..1] the runs entry's CTAs resident an SM and registers a
+// thread, out[2..3] the out entry's.  Launches nothing.
+extern "C" int sst_peaks_split_occupancy(int B, int* out) {
+  if (B <= 0) return (int)cudaErrorInvalidValue;
+  int err = occupancy(peaks_runs_kernel<4, false>, 4 * RunsLayout(B).words(),
+                      out);
+  if (!err)
+    err = occupancy(peaks_out_kernel<4, false>, 4 * OutLayout(B).words(),
+                    out + 2);
+  return err;
 }

@@ -42,9 +42,10 @@ ENTRY = {
     "peaks_runs": ("peaks", "sst_peaks_runs", [_P] * 5 + [_I] * 3 + [_P]),
     "peaks_runs_timed": ("peaks", "sst_peaks_runs_timed",
                          [_P] * 5 + [_I] * 3 + [_P, _P]),
-    "peaks_out": ("peaks", "sst_peaks_out", [_P] * 7 + [_I] * 4 + [_P]),
+    "peaks_out": ("peaks", "sst_peaks_out", [_P] * 7 + [_I] * 4 + [_P] * 2),
     "peaks_out_timed": ("peaks", "sst_peaks_out_timed",
-                        [_P] * 7 + [_I] * 4 + [_P, _P]),
+                        [_P] * 7 + [_I] * 4 + [_P] * 3),
+    "peaks_occupancy": ("peaks", "sst_peaks_split_occupancy", [_I, _P]),
     "block_sweep": ("block_sweep", "sst_block_sweep", [_P] * 10 + [_I] * 5
                     + [_P]),
     "block_sweep_timed": ("block_sweep", "sst_block_sweep_timed",

@@ -15,12 +15,14 @@ kernel or raises.
 
 A custom frequency map is a Python callable, which cannot run inside the
 kernel: `peaks_positions_custom` splits G around it into two entries of
-the same source, `peak_runs` (the runs, each peak's average band and
-frequency) and `output_positions` (the output map and the position sets
-from the mapped frequencies), and calls the map on the card between them.
+the same source, each a kernel of its own, `peak_runs` (the runs, each
+peak's average band and frequency) and `output_positions` (the output map
+and the position sets from the mapped frequencies), and calls the map on
+the card between them.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -35,8 +37,8 @@ out_launches = 0      # of output_positions (the out entry)
 # the entries' phases, as their timed entries split them (csrc/peaks.cu
 # STAMP)
 PHASES = ("wait", "flags", "runs", "prefix", "map")
-RUNS_PHASES = ("wait", "flags", "runs", "write")
-OUT_PHASES = ("peaks", "prefix", "map")
+RUNS_PHASES = ("wait", "flags", "runs")
+OUT_PHASES = ("wait", "peaks", "prefix", "map")
 
 f32 = np.float32
 
@@ -176,6 +178,19 @@ def peak_runs_plain(energy: torch.Tensor, smoothed: torch.Tensor,
     return spectral._peak_runs(energy, smoothed, consts)
 
 
+_queues: dict = {}
+
+
+def _queue(device: torch.device, stream: int) -> torch.Tensor:
+    """The out entry's row queue (csrc/peaks.cu claim_row) for `stream`
+    on `device`: two int32 counters, zeroed once here; every launch leaves
+    them zero, and launches on one stream run in turn."""
+    key = (device, stream)
+    if key not in _queues:
+        _queues[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _queues[key]
+
+
 def _launch_runs(entry, energy, smoothed, consts, *extra):
     R, B = energy.shape
     nseg = B // 2 + 2
@@ -245,11 +260,12 @@ def _launch_out(entry, peak_in, mapped, n_peaks, tf, ltf, B, consts, *extra):
     pos = torch.empty((R, 3, B), dtype=torch.float32, device=peak_in.device)
     freq_grad = torch.empty((R, B), dtype=torch.float32,
                             device=peak_in.device)
+    stream = torch.cuda.current_stream(peak_in.device).cuda_stream
     rc = _build.entry(entry)(
         peak_in.data_ptr(), mapped.data_ptr(), n_peaks.data_ptr(),
         tf.data_ptr(), ltf.data_ptr(), pos.data_ptr(), freq_grad.data_ptr(),
-        R, B, tf.shape[0], consts.fft_samples, *extra,
-        torch.cuda.current_stream(peak_in.device).cuda_stream)
+        R, B, tf.shape[0], consts.fft_samples,
+        _queue(peak_in.device, stream).data_ptr(), *extra, stream)
     _build.check(rc, f"peaks kernel entry {entry!r}")
     return pos, freq_grad
 
@@ -289,6 +305,18 @@ def peaks_positions_custom(energy: torch.Tensor, smoothed: torch.Tensor,
     peak_in, avg_freq, n_peaks = runs(energy, smoothed, consts)
     mapped = spectral.custom_map_freq(custom_map, avg_freq)
     return out(peak_in, mapped, n_peaks, tf, ltf, energy.shape[1], consts)
+
+
+def split_occupancy(B: int) -> dict:
+    """The split's entries on the current card at width B, as the main path
+    launches them (16-byte rows): {"peaks_runs": (CTAs resident an SM,
+    registers a thread), "peaks_out": (...)}, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor at each entry's shared
+    memory and cudaFuncGetAttributes.  Launches nothing."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.entry("peaks_occupancy")(B, ctypes.addressof(out)),
+                 "peaks kernel entry 'peaks_occupancy'")
+    return {"peaks_runs": (out[0], out[1]), "peaks_out": (out[2], out[3])}
 
 
 def runs_stamps(energy: torch.Tensor, smoothed: torch.Tensor,

@@ -602,6 +602,97 @@ def test_planner_custom_map_launches(dev):
     assert st.shape[1] == len(peaks.OUT_PHASES) + 3 and st.shape[0] > 0
 
 
+def _split_case_rows(case, dev):
+    """Rows for the split's walk cases: (energy, smoothed, B, offset)."""
+    from signalsmith_stretch_torch.ops import peaks
+    if case == "resident_walk":
+        B = 4096
+        occ = peaks.split_occupancy(B)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        R = 3 * max(c for c, _ in occ.values()) * sms + 1
+    elif case == "one_row":
+        B, R = 4096, 1
+    else:
+        B, R = int(case.rsplit("_", 1)[1]), 14
+    rows = chip_smoke.peaks_edge_rows(B, seed=R)
+    reps = -(-R // rows[0].shape[0])
+    e, s = (np.tile(a, (reps, 1))[-R:] for a in rows)
+    return e, s, B, int(case.startswith("misaligned"))
+
+
+def _off_by_one(x, dev, offset):
+    """x on the card, as a contiguous view `offset` floats into a buffer
+    (off 8- and 16-byte alignment for offset 1)."""
+    flat = torch.zeros(x.size + offset, dtype=torch.float32, device=dev)
+    view = flat[offset:].view(x.shape)
+    view.copy_(torch.as_tensor(np.ascontiguousarray(x), device=dev))
+    return view
+
+
+@pytest.mark.parametrize("case", ["resident_walk", "misaligned_998",
+                                  "misaligned_1000", "one_row"])
+def test_peaks_split_walks_match_plain(dev, case):
+    """G's runs and out entries at the edges of their walks, each bit-equal
+    to its plain version on the card and on a CPU copy of its inputs: R =
+    3 x (the entries' CTAs resident on this card) + 1 rows at B = 4096, so
+    every CTA stages and prefetches across several rows; inputs one float
+    off 8- and 16-byte alignment at B = 998 (rows alternating between the
+    two, nseg odd) and 1000 (the runs entry's 4-byte loads, the out
+    entry's 4-byte staging); one row, as in a stream block.  Each row its
+    own block of tf and ltf."""
+    from signalsmith_stretch_torch import spectral
+    from signalsmith_stretch_torch.ops import peaks
+    model, _, _ = _mapped_model(dev)
+    consts = model.plan.consts
+    e_np, s_np, B, offset = _split_case_rows(case, dev)
+    R = e_np.shape[0]
+    e, s = (_off_by_one(a, dev, offset) for a in (e_np, s_np))
+    assert e.data_ptr() % 8 == 4 * offset
+    shifts = np.random.default_rng(R).uniform(0.5, 2.0, R).astype(np.float32)
+    tf, ltf = _t(shifts, dev), _t(np.float32(6) * shifts, dev)
+    runs = peaks.peak_runs(e, s, consts)
+    for want in (peaks.peak_runs_plain(e.cpu(), s.cpu(), consts),
+                 peaks.peak_runs_plain(e, s, consts)):
+        assert all(chip_smoke.same_bits(g.cpu(), w.cpu())
+                   for g, w in zip(runs, want))
+    peak_in, avg_freq, n_peaks = runs
+    mapped = spectral.map_freq(avg_freq, model.controls)
+    pin, mp = (_off_by_one(a.cpu().numpy(), dev, offset)
+               for a in (peak_in, mapped))
+    args = (n_peaks, tf, ltf, B, consts)
+    got = peaks.output_positions(pin, mp, *args)
+    cpu = peaks.output_positions_plain(pin.cpu(), mp.cpu(),
+                                       *(a.cpu() for a in args[:3]), B,
+                                       consts)
+    card = peaks.output_positions_plain(pin, mp, *args)
+    assert got[0].shape == (R, 3, B)
+    for g, c, p in zip(got, cpu, card):
+        assert chip_smoke.same_bits(g.cpu(), c)
+        assert chip_smoke.same_bits(p.cpu(), c)
+
+
+def test_peaks_map_walk_matches_cpu(dev):
+    """The one-launch G, which the split's redesign leaves as it was, on a
+    walk of 3 x its CTAs resident on this card + 1 rows (the edge rows
+    tiled, B = 4096), bit-equal in all four planes to its plain version on
+    a CPU copy of its inputs."""
+    from signalsmith_stretch_torch.ops import peaks
+    model, _, _ = _mapped_model(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    R = 3 * 2 * sms + 1                 # two CTAs an SM at B = 4096
+    rows = chip_smoke.peaks_edge_rows(4096, seed=1)
+    reps = -(-R // rows[0].shape[0])
+    e, s = (_t(np.tile(a, (reps, 1))[:R], dev) for a in rows)
+    shifts = np.random.default_rng(9).uniform(0.5, 2.0, R).astype(np.float32)
+    tf, ltf = _t(shifts, dev), _t(np.float32(6) * shifts, dev)
+    args = (e, s, tf, ltf, model.controls, model.plan.consts)
+    got = peaks.peaks_positions(*args)
+    cpu = peaks.peaks_positions_plain(*(a.cpu() for a in args[:4]),
+                                      *args[4:])
+    for g, c in zip(got, cpu):
+        assert chip_smoke.same_bits(g.cpu(), c)
+
+
 # ---------------------------------------------------------------------------
 # The streaming engine: kernel H and the block step on the card
 # ---------------------------------------------------------------------------

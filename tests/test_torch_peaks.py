@@ -18,10 +18,16 @@ segment prefixes and the map's lanes on neighbouring bins) in float32
 numpy, held bit-equal to the plain version's four planes (the position
 sets and the gradient) at the kernel's 512 threads and at fewer, and at
 widths that leave every part ragged.  `split_kernel_model` is the same
-source's runs and out entries (G split around a custom map: the write
-phase's zero-filled slots, the out entry's histogram zeroed whole once and
-its tail at each row's end), held to the plain split and the one-launch
-plain version the same way.
+source's runs and out entries (G split around a custom map), each its own
+persistent walk: the runs entry's runs writing their own slots and the
+zero fill from n_peaks on, started once flags have given the count; the
+out entry's rows claimed from a queue, their valid slots staged a row
+ahead in a double buffer, their count read a row ahead and clamped, a
+peak counted in its histogram only below bin B.  It is held to the plain
+split and the one-launch plain version the same way, also on rows with
+no peak, with the most peaks, with more rows than its CTAs walk three
+times over, with counts outside [0, (B + 1) / 2] and on planes off 8-byte
+alignment.
 """
 import jax
 import jax.numpy as jnp
@@ -120,16 +126,12 @@ def _warp_inclusive(v):
     return np.cumsum(np.asarray(v, np.int64))
 
 
-def _flags_and_runs(E, S, B, threads, peak):
-    """The flags and runs phases of csrc/peaks.cu on one row: a warp takes
-    a segment of 256 bins, one ballot a 32-bin word (bit j = bin 32w + j),
-    run starts above & ~(above << 1 | carry) with the carry between words
-    and segments, the segment's start count; a thread owns the 8 bins of
-    chunk c (segment c // 32 is its warp's), its run ids the earlier
-    segments' counts plus a warp prefix of its lanes' counts; it walks the
-    bitmask (a zero word past the last) to each run's end and sums the run
-    bin-ascending from 0 in float32, then calls peak(run_id, avg).  Returns
-    the row's number of runs."""
+def _flags(E, S, B, threads):
+    """The flags phase of csrc/peaks.cu on one row: a warp takes a segment
+    of 256 bins, one ballot a 32-bin word (bit j = bin 32w + j), run starts
+    above & ~(above << 1 | carry) with the carry between words and
+    segments, the segment's start count.  Returns (above-words with a zero
+    word past the last, the segments' start counts)."""
     NW, NS, W = threads // 32, -(-B // 256), -(-B // 32)
     above = np.zeros(W + 1, np.uint64)    # above[W] stays 0
     seg_starts = np.zeros(NS, np.int64)
@@ -147,6 +149,16 @@ def _flags_and_runs(E, S, B, threads, peak):
                 starts = a & ~(((a << 1) & 0xffffffff) | carry)
                 seg_starts[s] += bin(starts).count("1")
                 carry = a >> 31
+    return above, seg_starts
+
+
+def _runs(E, above, seg_starts, B, threads, peak):
+    """The runs phase on one row: a thread owns the 8 bins of chunk c
+    (segment c // 32 is its warp's), its run ids the earlier segments'
+    counts plus a warp prefix of its lanes' counts; it walks the bitmask
+    to each run's end and sums the run bin-ascending from 0 in float32,
+    then calls peak(run_id, avg).  Returns the row's number of runs."""
+    NW, NS = threads // 32, len(seg_starts)
     for c0 in range(0, 32 * NS, threads):
         for warp in range(NW):
             s = c0 // 32 + warp
@@ -167,8 +179,10 @@ def _flags_and_runs(E, S, B, threads, peak):
                 starts.append((b0, st))
                 counts.append(bin(st).count("1"))
             excl = _warp_inclusive(counts) - counts
+            last = -1
             for (b0, st), ex in zip(starts, excl):
                 run_id = base + int(ex)
+                assert run_id > last or not st   # ids ascend over the lanes
                 for j in range(8):
                     if not st >> j & 1:
                         continue
@@ -186,8 +200,16 @@ def _flags_and_runs(E, S, B, threads, peak):
                         energy_sum = f32(energy_sum + E[b])
                     peak(run_id, f32(band_sum / (f32(1) if energy_sum == 0
                                                  else energy_sum)))
+                    last = run_id
                     run_id += 1
     return int(seg_starts.sum())
+
+
+def _flags_and_runs(E, S, B, threads, peak):
+    """The flags and runs phases on one row (_flags, _runs): calls
+    peak(run_id, avg) once a run; returns the row's number of runs."""
+    above, seg_starts = _flags(E, S, B, threads)
+    return _runs(E, above, seg_starts, B, threads, peak)
 
 
 def _count_peak(hist, peak_in, peak_out, i, avg, mapped, Nf, B):
@@ -279,6 +301,24 @@ def _row_walk(R, grid, rows_of_cta):
     assert (visited == 1).all()
 
 
+def _queue_walk(R, grid, rows_of_cta, seed=0):
+    """The out entry's walk: grid = min(grid, R) CTAs, CTA c takes row c
+    first, then rows past the first grid from a queue shared by the CTAs,
+    in the order they come to claim (a seeded random order here: a row's
+    cost decides it on the card); calls rows_of_cta(cta, rows) and asserts
+    every row is visited once."""
+    grid = min(grid, R)
+    rows = [[c] for c in range(grid)]
+    rng = np.random.default_rng(seed)
+    for row in range(grid, R):
+        rows[int(rng.integers(grid))].append(row)
+    visited = np.zeros(R, int)
+    for cta in range(grid):
+        visited[rows[cta]] += 1
+        rows_of_cta(cta, rows[cta])
+    assert (visited == 1).all()
+
+
 def peaks_kernel_model(energy, smoothed, tf, ltf, controls, N, threads=512,
                        grid=3, vec=4):
     """csrc/peaks.cu's one-launch entry on the CPU, phase by phase, at
@@ -329,73 +369,151 @@ def peaks_kernel_model(energy, smoothed, tf, ltf, controls, N, threads=512,
     return pos, grad
 
 
-def split_kernel_model(energy, smoothed, tf, ltf, custom_map, N, threads=512,
-                       grid=3, vec=4):
-    """csrc/peaks.cu's runs entry and out entry on the CPU around a custom
-    map (`custom_map`: float32 numpy in and out), each a persistent walk
-    of `grid` CTAs.  The runs entry: flags and runs, then the write phase,
-    peak_in and avg_freq = (avg + 0.5) / N on every slot of [R, B // 2 +
-    2], 0 from n_peaks on, and n_peaks.  The out entry: its histogram
-    zeroed whole once; a row counts its n_peaks[r] peaks (only those
-    slots read), then prefix and map, and zeroes the tail past B at the
-    end, so the histogram is all zero at every row's start.  Returns
-    (pos, freq_grad, (peak_in, avg_freq, n_peaks)) float32 numpy."""
+def _fill_slots(n0, n1, parity):
+    """csrc/peaks.cu zero_slots on a row whose slot 0 lies `parity` floats
+    past 8-byte alignment: a 4-byte head store to reach 8 bytes, 8-byte
+    pairs, at most one 4-byte tail store.  Returns the slots stored."""
+    i, slots = n0, []
+    if (parity + i) % 2 and i < n1:
+        slots.append(i)
+        i += 1
+    pairs = (n1 - i) // 2
+    assert (parity + i) % 2 == 0 or pairs == 0   # the pairs are 8-byte
+    slots += range(i, i + 2 * pairs)
+    i += 2 * pairs
+    assert n1 - i <= 1
+    return slots + list(range(i, n1))
+
+
+def split_runs_model(energy, smoothed, N, threads=512, grid=3, offset=0):
+    """csrc/peaks.cu's runs entry on the CPU, a persistent walk of `grid`
+    CTAs (_row_walk) over rows [R, B], its output planes' slot 0 `offset`
+    floats past 8-byte alignment: per row the flags phase, then n_peaks
+    (the start counts' total) out, the zero fill of slots [n_peaks, nseg)
+    (_fill_slots, 8-byte pairs where the slot's address allows) and the
+    runs phase, each run's thread writing its own slot i < n_peaks (avg
+    and (avg + 0.5) / N) straight to the planes.  Every slot is written
+    once: those below n_peaks by their run alone, the others by the fill
+    alone.  Returns (peak_in, avg_freq [R, B // 2 + 2], n_peaks [R])."""
     assert threads % 32 == 0
     energy = np.asarray(energy, f32)
     smoothed = np.asarray(smoothed, f32)
     R, B = energy.shape
-    nB = len(tf)
-    NS = -(-B // 256)
     nseg = B // 2 + 2
-    vec = vec if B % 4 == 0 else 1
-    Nf = f32(N)
-    inv_n = f32(f32(1) / Nf)
-    PR = -(-((B + 1) // 2) // 4) * 4          # the tables' slots
+    inv_n = f32(f32(1) / f32(N))
     slots_in = np.full((R, nseg), np.nan, f32)
     slots_freq = np.full((R, nseg), np.nan, f32)
+    written = np.zeros((R, nseg), int)
     n_peaks = np.full(R, -1, np.int32)
 
     def runs_rows(cta, rows):
         for row in rows:
-            peak_in = np.full(PR, np.nan, f32)
-            freq = np.full(PR, np.nan, f32)
+            above, seg_starts = _flags(energy[row], smoothed[row], B, threads)
+            n = int(seg_starts.sum())            # after the flags barrier
+            n_peaks[row] = n
+            for i in _fill_slots(n, nseg, (offset + row * nseg) % 2):
+                slots_in[row, i] = slots_freq[row, i] = f32(0)
+                written[row, i] += 1
 
             def peak(i, avg):
-                peak_in[i] = avg
-                freq[i] = f32(f32(avg + f32(0.5)) * inv_n)
+                assert i < n and written[row, i] == 0
+                slots_in[row, i] = avg
+                slots_freq[row, i] = f32(f32(avg + f32(0.5)) * inv_n)
+                written[row, i] += 1
 
-            n = _flags_and_runs(energy[row], smoothed[row], B, threads, peak)
-            assert n <= PR and not np.isnan(peak_in[:n]).any()
-            for i in range(nseg):                 # the write phase
-                slots_in[row, i] = peak_in[i] if i < n else f32(0)
-                slots_freq[row, i] = freq[i] if i < n else f32(0)
-            n_peaks[row] = n
+            assert _runs(energy[row], above, seg_starts, B, threads,
+                         peak) == n
 
     _row_walk(R, grid, runs_rows)
-    mapped = np.asarray(custom_map(slots_freq.copy()), f32)
-    assert mapped.shape == slots_freq.shape
+    assert (written == 1).all()
+    return slots_in, slots_freq, n_peaks
+
+
+def split_out_model(peak_in, mapped, n_peaks, tf, ltf, B, N, threads=512,
+                    grid=3, vec=4, offset=0):
+    """csrc/peaks.cu's out entry on the CPU, a persistent walk of `grid`
+    CTAs (_queue_walk) over the rows of peak_in and mapped [R, B // 2 + 2]
+    (their slot 0 `offset` floats past 8-byte alignment) and n_peaks [R].
+    A row's count is clamped to [0, (B + 1) / 2] and read a row ahead; its
+    valid slots are staged into one half of a double buffer while the
+    previous row runs (8-byte copies of ceil(n / 2) pairs where the row
+    allows, else n 4-byte copies), and the row reads them there only: the
+    peaks phase turns mapped into peak_out = mapped * N - 0.5 in place and
+    counts each whose cell clamp(ceil(out), 0, B) is below B in the
+    histogram of the segments' bins (zeroed once; the map zeroes the bins
+    below B as it reads them, the row's end those past B), then prefix
+    and map.  Returns (pos [R, 3, B], freq_grad [R,
+    B]) float32 numpy."""
+    peak_in = np.asarray(peak_in, f32)
+    mapped = np.asarray(mapped, f32)
+    R, nseg = peak_in.shape
+    assert nseg == B // 2 + 2
+    nB = len(tf)
+    NS, M = -(-B // 256), (B + 1) // 2
+    PR = -(-M // 4) * 4                   # a buffer's slots
+    vec = vec if B % 4 == 0 else 1
+    Nf = f32(N)
     pos = np.full((R, 3, B), np.nan, f32)
     grad = np.full((R, B), np.nan, f32)
 
+    def count(row):
+        return min(max(int(n_peaks[row]), 0), M)
+
+    def stage(row, n):
+        if (offset + row * nseg) % 2 == 0:
+            copied = 2 * ((n + 1) // 2)          # slot n too when n is odd
+        else:
+            copied = n
+        assert copied <= min(PR, nseg)
+        buf = np.full((2, PR), np.nan, f32)
+        buf[0, :copied] = peak_in[row, :copied]
+        buf[1, :copied] = mapped[row, :copied]
+        return row, buf
+
     def out_rows(cta, rows):
-        hist = np.zeros(256 * NS + 4, np.int64)     # zeroed whole, once
-        for row in rows:
+        hist = np.zeros(256 * NS, np.int64)         # zeroed once
+        buffers = [stage(rows[0], count(rows[0])), None]
+        n = count(rows[0])
+        n_next = count(rows[1]) if len(rows) > 1 else 0
+        for it, row in enumerate(rows):
+            staged, buf = buffers[it % 2]
+            assert staged == row                  # this row's slots
+            n_after = 0
+            if it + 1 < len(rows):                # the next row's, the other
+                buffers[(it + 1) % 2] = stage(rows[it + 1], n_next)
+                if it + 2 < len(rows):
+                    n_after = count(rows[it + 2])
             assert not hist.any()
-            n = min(max(int(n_peaks[row]), 0), (B + 1) // 2)
-            peak_in = np.full(PR, np.nan, f32)
-            peak_out = np.full(PR, np.nan, f32)
+            pin, pout = buf
             for i in range(n):                    # only the valid slots
-                _count_peak(hist, peak_in, peak_out, i, slots_in[row, i],
-                            mapped[row, i], Nf, B)
-            ib, g = _prefix_and_map(hist, peak_in, peak_out, n, B, threads,
-                                    vec)
-            hist[B:] = 0                          # the tail, at the end
+                pout[i] = f32(f32(pout[i] * Nf) - f32(0.5))
+                cell = int(min(max(np.ceil(pout[i]), f32(0)), f32(B)))
+                if cell < B:                      # cell B: in no k[b]
+                    hist[cell] += 1
+            ib, g = _prefix_and_map(hist, pin, pout, n, B, threads, vec)
+            hist[B:] = 0                # the prefix's tail, at the row's end
             blk = row % nB
             pos[row] = [ib, ib - tf[blk], ib - ltf[blk]]
             grad[row] = g
+            n, n_next = n_next, n_after
 
-    _row_walk(R, grid, out_rows)
-    return pos, grad, (slots_in, slots_freq, n_peaks)
+    _queue_walk(R, grid, out_rows, seed=R + 1)
+    return pos, grad
+
+
+def split_kernel_model(energy, smoothed, tf, ltf, custom_map, N, threads=512,
+                       grid=3, vec=4, offset=0):
+    """csrc/peaks.cu's runs entry and out entry on the CPU around a custom
+    map (`custom_map`: float32 numpy in and out): split_runs_model, the
+    map on every slot of avg_freq, split_out_model.  Returns (pos,
+    freq_grad, (peak_in, avg_freq, n_peaks)) float32 numpy."""
+    runs = split_runs_model(energy, smoothed, N, threads, grid, offset)
+    mapped = np.asarray(custom_map(runs[1].copy()), f32)
+    assert mapped.shape == runs[1].shape
+    pos, grad = split_out_model(runs[0], mapped, runs[2], tf, ltf,
+                                np.shape(energy)[1], N, threads, grid, vec,
+                                offset)
+    return pos, grad, runs
 
 
 def _rows(B, seed):
@@ -542,3 +660,73 @@ def test_split_kernel_model_matches_plain(B, threads, nan_outside):
     for g, w, o in zip((pos, grad), split, one):
         _assert_bits(g, w.numpy())
         _assert_bits(g, o.numpy())
+
+
+def _walk_rows(case, B):
+    """Rows for test_split_kernel_model_walks: "no_peaks" no bin above its
+    curve; "most_peaks" every other bin from bin 0 above, (B + 1) // 2
+    runs; otherwise _rows."""
+    rng = np.random.default_rng(B)
+    e = rng.exponential(1.0, (5, B)).astype(f32) + f32(0.1)
+    if case == "no_peaks":
+        return e, (e * f32(2)).astype(f32)
+    if case == "most_peaks":
+        odd = np.arange(B) % 2 == 1
+        return e, np.where(odd, e * f32(2), f32(0)).astype(f32)
+    return _rows(B, seed=B)
+
+
+@pytest.mark.parametrize("case,B", [
+    ("no_peaks", 300), ("no_peaks", 4096), ("most_peaks", 7),
+    ("most_peaks", 1000), ("most_peaks", 4096), ("many_rows", 1000),
+    ("many_rows", 998), ("n_peaks_outside", 7), ("n_peaks_outside", 1000),
+    ("misaligned", 998), ("misaligned", 1000)])
+def test_split_kernel_model_walks(case, B):
+    """The split's walks on the CPU (split_runs_model, split_out_model) at
+    their edges, bit-equal to the plain versions: rows with no peak; rows
+    with the most peaks, n_peaks = (B + 1) / 2 (alternating bins); more
+    rows than 3 x the modelled CTAs, so each CTA stages its next row
+    several times (R = 3 * grid + 1); counts outside [0, (B + 1) / 2] in
+    the out entry's input (negative, past the tables, the int32 extremes),
+    which it clamps, against the plain output map of the clamped counts;
+    and planes whose slot 0 lies 4 bytes off 8-byte alignment (a view one
+    float in), at a width whose rows alternate between the two (998:
+    nseg odd)."""
+    model, _ = _models()
+    consts = model.plan.consts
+    N, M, grid = consts.fft_samples, (B + 1) // 2, 3
+    e, s = _walk_rows(case, B)
+    if case == "many_rows":
+        reps = -(-(3 * grid + 1) // e.shape[0])
+        e, s = (np.tile(a, (reps, 1))[:3 * grid + 1] for a in (e, s))
+    R = e.shape[0]
+    offset = int(case == "misaligned")
+    tf, ltf = _shifts(R, seed=B + 2)
+    np_map, torch_map = _tonality_maps(model.controls)
+    runs = split_runs_model(e, s, N, grid=grid, offset=offset)
+    args = [torch.as_tensor(a) for a in (e, s, tf, ltf)]
+    for g, w in zip(runs, peaks.peak_runs_plain(*args[:2], consts)):
+        _assert_bits(g, w.numpy())
+    if case == "no_peaks":
+        assert not runs[2].any()
+    if case == "most_peaks":
+        assert (runs[2] == M).all()
+    mapped = np_map(runs[1].copy())
+    n_in = runs[2].copy()
+    if case == "n_peaks_outside":
+        n_in[:4] = [-5, M + 3, 2 ** 31 - 1, -2 ** 31]
+    got = split_out_model(runs[0], mapped, n_in, tf, ltf, B, N, grid=grid,
+                          offset=offset)
+    want = peaks.output_positions_plain(
+        torch.as_tensor(runs[0]), torch.as_tensor(mapped),
+        torch.as_tensor(np.clip(n_in, 0, M).astype(np.int32)), *args[2:],
+        B, consts)
+    for g, w in zip(got, want):
+        _assert_bits(g, w.numpy())
+    if case != "n_peaks_outside":
+        one = peaks.peaks_positions_plain(*args, model.controls, consts)
+        split = peaks.peaks_positions_custom(*args, torch_map, consts,
+                                             plain=True)
+        for g, o, x in zip(got, one, split):
+            _assert_bits(g, o.numpy())
+            _assert_bits(g, x.numpy())
