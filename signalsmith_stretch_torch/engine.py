@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from . import schedule as sched_mod
 from . import spectral, stft, wavefront
 from .config import NOISE_FLOOR, StretchConfig
+from .utils.profiling import span
 
 plans_built = 0       # build_exact_plan calls (utils/profiling's guard)
 
@@ -249,7 +250,10 @@ def synthesis_stage(out_specs: torch.Tensor, plan: ExactPlan,
     blocks_t = stft.synthesize(out_specs, plan.basis)   # [batch, ch, nB, block]
     ring = _overlap_add(blocks_t, plan.arrays["out_pos"], sch.ring_len,
                         cfg.block_samples, cfg.interval_samples)
-    w = torch.as_tensor(plan.weight, device=ring.device)
+    with span("sst.synthesis.wait"):
+        # a copy from pageable memory waits for the work queued before it
+        # (the plan, the sweep and the inverse FFT)
+        w = torch.as_tensor(plan.weight, device=ring.device)
     L = sch.preroll_len
     preroll = ring[..., :L] / w[:L]
     # outputSeek: negate + reverse the pre-roll into the ring (:198-203)
@@ -312,7 +316,11 @@ def render_exact(audio: torch.Tensor, plan: ExactPlan,
     normal path, which leaves a loud clip's render as it was."""
     if not plan.sched.valid:
         return audio.new_zeros(audio.shape[:2] + (plan.sched.out_samples,))
-    spectra, prev_spectra = analyze_stage(audio, plan, plain)
-    out_specs = spectral_stage(spectra, prev_spectra, plan, controls, flags,
-                               plain, seeds)
-    return synthesis_stage(out_specs, plan, audio=audio if silence else None)
+    with span("sst.render"):
+        with span("sst.render.analysis"):
+            spectra, prev_spectra = analyze_stage(audio, plan, plain)
+        out_specs = spectral_stage(spectra, prev_spectra, plan, controls,
+                                   flags, plain, seeds)
+        with span("sst.render.synthesis"):
+            return synthesis_stage(out_specs, plan,
+                                   audio=audio if silence else None)

@@ -10,6 +10,7 @@ from torch import nn
 from .. import engine
 from ..config import StretchConfig, device_for
 from ..spectral import Controls, SpectralFlags
+from ..utils.profiling import span
 
 f32 = np.float32
 
@@ -69,7 +70,9 @@ class StretchModel(nn.Module):
         for the randomised regime above 2x, by default 0, 1, ..., batch - 1
         (the JAX package's `batched`).  plain=True runs the plain PyTorch
         versions of the kernels (for comparisons on the card)."""
-        audio = torch.as_tensor(audio, dtype=torch.float32, device=self.device)
+        with span("sst.render.copy_in"):
+            audio = torch.as_tensor(audio, dtype=torch.float32,
+                                    device=self.device)
         if audio.shape[1:] != (self.cfg.channels, self.in_samples):
             raise ValueError(f"expected [batch, {self.cfg.channels}, "
                              f"{self.in_samples}] audio, got "

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from . import prng, spectral
 from .config import MAX_CLEAN_STRETCH, NOISE_FLOOR
 from .ops import draws, interp, peaks, scan_ops
+from .utils.profiling import span
 
 f32 = np.float32
 
@@ -306,7 +307,10 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
                          f"{len(controls.freq_multiplier)} blocks for a plan "
                          f"of {nB}")
     dbg = {}
-    rotor = torch.as_tensor(consts.rotor, device=dev)
+    with span("sst.plan.wait"):
+        # a copy from pageable memory waits for the work queued before it
+        # (the analysis)
+        rotor = torch.as_tensor(consts.rotor, device=dev)
 
     def blocks(z, idx):
         return z[:, torch.as_tensor(idx, device=dev)]
@@ -315,30 +319,32 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
         return torch.as_tensor(keep, device=dev)[None, :, None, None]
 
     # ---- static input/prevInput chains (:332-376, 806-812) ----------------
-    idx = np.arange(nB)
-    src_input = np.maximum.accumulate(np.where(new, idx, -1))
-    m_prev = np.concatenate([[-1], src_input[:-1]])   # last new block < k
-    if (src_input == idx).all():
-        input_eff = spectra
-    else:
-        input_eff = _where0(bmask(src_input >= 0),
-                            blocks(spectra, np.maximum(src_input, 0)))
-    if reanalyse.all():
-        prev_base = prev_spectra
-    else:
-        base_idx = np.where(new & ~reanalyse, np.maximum(m_prev, 0),
-                            np.maximum(src_input, 0))
-        base_valid = np.where(new & ~reanalyse, m_prev >= 0, src_input >= 0)
-        prev_base = torch.where(bmask(reanalyse), prev_spectra,
-                                blocks(spectra, base_idx))
-        prev_base = _where0(bmask(base_valid | reanalyse), prev_base)
-    if new.all():
-        prev_eff = prev_base * rotor
-    else:
-        prev_eff = torch.where(bmask(new), prev_base * rotor, prev_base)
+    with span("sst.plan.inputs"):
+        idx = np.arange(nB)
+        src_input = np.maximum.accumulate(np.where(new, idx, -1))
+        m_prev = np.concatenate([[-1], src_input[:-1]])  # last new block < k
+        if (src_input == idx).all():
+            input_eff = spectra
+        else:
+            input_eff = _where0(bmask(src_input >= 0),
+                                blocks(spectra, np.maximum(src_input, 0)))
+        if reanalyse.all():
+            prev_base = prev_spectra
+        else:
+            base_idx = np.where(new & ~reanalyse, np.maximum(m_prev, 0),
+                                np.maximum(src_input, 0))
+            base_valid = np.where(new & ~reanalyse, m_prev >= 0,
+                                  src_input >= 0)
+            prev_base = torch.where(bmask(reanalyse), prev_spectra,
+                                    blocks(spectra, base_idx))
+            prev_base = _where0(bmask(base_valid | reanalyse), prev_base)
+        if new.all():
+            prev_eff = prev_base * rotor
+        else:
+            prev_eff = torch.where(bmask(new), prev_base * rotor, prev_base)
 
-    in_energy = (input_eff.real * input_eff.real
-                 + input_eff.imag * input_eff.imag)         # [batch, nB, ch, B]
+        in_energy = (input_eff.real * input_eff.real
+                     + input_eff.imag * input_eff.imag)  # [batch, nB, ch, B]
     ltf = (f32(longv) * tf).astype(f32)
     R = batch * nB
 
@@ -351,39 +357,45 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
         seeds = range(batch) if seeds is None else [int(x) for x in seeds]
         if len(seeds) != batch:
             raise ValueError(f"{len(seeds)} seeds for {batch} clips")
-        btf1, btf2 = (rows(t) for t in _random_time_factors(
-            tf, seeds, B, flags, dev, plain))
+        with span("sst.plan.draws"):
+            btf1, btf2 = (rows(t) for t in _random_time_factors(
+                tf, seeds, B, flags, dev, plain))
         if debug:
             dbg.update(btf1=btf1, btf2=btf2)
     if flags.mapped or flags.process_formants:
         # cross-channel energy, before the formant ratio
-        energy = in_energy[:, :, 0]
-        for c in range(1, ch):
-            energy = energy + in_energy[:, :, c]
-        energy = energy.reshape(R, B).contiguous()
+        with span("sst.plan.energy"):
+            energy = in_energy[:, :, 0]
+            for c in range(1, ch):
+                energy = energy + in_energy[:, :, c]
+            energy = energy.reshape(R, B).contiguous()
 
     if flags.mapped:
         # ---- smoothing + peaks + output map (:816-917) --------------------
         # two steps, each a down then an up pass, each pass from the
         # previous one's last value: four passes in one launch (kernel C)
         iir = scan_ops.iir_chain_plain if plain else scan_ops.iir_chain
-        sm, _ = iir(energy, torch.zeros(R, dtype=torch.float32, device=dev),
-                    consts.slew, (True, False, True, False))
+        with span("sst.plan.smooth"):
+            sm, _ = iir(energy,
+                        torch.zeros(R, dtype=torch.float32, device=dev),
+                        consts.slew, (True, False, True, False))
         # the peaks and output map in one launch (kernel G), which also
         # writes kernel A's three position sets: input_bin, input_bin - tf
         # and input_bin - longv*tf of each row's block (:744-786)
-        tf_d, ltf_d = _vote_shifts(tf.astype(f32).tobytes(), ltf.tobytes(),
-                                   dev)
-        if flags.custom_map is not None:
-            # a custom map (a Python callable) runs between G's runs entry
-            # and its out entry, on the card
-            pos, freq_grad = peaks.peaks_positions_custom(
-                energy, sm, tf_d, ltf_d, flags.custom_map, consts, plain)
-        else:
-            peaks_map = (peaks.peaks_positions_plain if plain
-                         else peaks.peaks_positions)
-            pos, freq_grad = peaks_map(energy, sm, tf_d, ltf_d, controls,
-                                       consts)
+        with span("sst.plan.peaks"):
+            tf_d, ltf_d = _vote_shifts(tf.astype(f32).tobytes(),
+                                       ltf.tobytes(), dev)
+            if flags.custom_map is not None:
+                # a custom map (a Python callable) runs between G's runs
+                # entry and its out entry, on the card
+                pos, freq_grad = peaks.peaks_positions_custom(
+                    energy, sm, tf_d, ltf_d, flags.custom_map, consts,
+                    plain)
+            else:
+                peaks_map = (peaks.peaks_positions_plain if plain
+                             else peaks.peaks_positions)
+                pos, freq_grad = peaks_map(energy, sm, tf_d, ltf_d, controls,
+                                           consts)
         if debug:
             dbg.update(energy=energy, smoothed=sm, input_bin=pos[:, 0],
                        freq_grad=freq_grad, pos=pos, shifts=(tf_d, ltf_d))
@@ -391,80 +403,85 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
     if flags.process_formants:
         # ---- formants (:970-1036): every later read of in_energy (the
         # interp rows, the unmapped prediction energies) sees the ratio ----
-        ratio, _ = _formant_ratio(energy, batch, controls, flags, consts,
-                                  plain, dbg if debug else None)
-        in_energy = in_energy * ratio.reshape(batch, nB, 1, B)
+        with span("sst.plan.formant"):
+            ratio, _ = _formant_ratio(energy, batch, controls, flags, consts,
+                                      plain, dbg if debug else None)
+            in_energy = in_energy * ratio.reshape(batch, nB, 1, B)
 
-    if flags.mapped:
-        # ---- prediction lookups at the mapped positions (:697-719) --------
-        # one multi-set call (kernel A) on G's position sets: the prelim
-        # lookups of input, prevInput and energy at input_bin, and the vote
-        # taps of the input at input_bin - tf and input_bin - longv*tf; in
-        # the randomised regime the four vote sets at the drawn factors
-        rows_list = ([rows(input_eff[:, :, c]) for c in range(ch)]
-                     + [rows(prev_eff[:, :, c]) for c in range(ch)]
-                     + [rows(in_energy[:, :, c]) for c in range(ch)])
-        if any_random:
-            pos = torch.stack([pos[:, 0]] + _random_vote_positions(
-                pos[:, 0], btf1, btf2, longv), 1)
-        specs = [(pos[:, 0], 3 * ch)] + [(pos[:, k], ch)
-                                          for k in range(1, pos.shape[1])]
-        vals, *votes = _lookup(rows_list, specs, pos, plain, batch,
-                               dbg if debug else None)
-        pos_grad = torch.clamp(freq_grad.reshape(batch, nB, B), min=0)
-        pi = vals[:ch]
-        prev_i = vals[ch:2 * ch]
-        pe = [v * pos_grad for v in vals[2 * ch:]]
-    else:
-        pe = [in_energy[:, :, c] for c in range(ch)]
-        pi = [input_eff[:, :, c] for c in range(ch)]
-        prev_i = [prev_eff[:, :, c] for c in range(ch)]
-        if any_random:
-            # per-bin vote positions about the identity map, b less the
-            # drawn factors: four sets over the input's planes (kernel A)
-            base = torch.arange(B, dtype=torch.float32, device=dev)
-            pos = torch.stack(_random_vote_positions(base, btf1, btf2,
-                                                     longv), 1)
-            votes = _lookup([rows(p) for p in pi],
-                            [(pos[:, k], ch) for k in range(4)], pos, plain,
-                            batch, dbg if debug else None)
+    with span("sst.plan.lookup"):
+        if flags.mapped:
+            # ---- prediction lookups at the mapped positions (:697-719) ----
+            # one multi-set call (kernel A) on G's position sets: the
+            # prelim lookups of input, prevInput and energy at input_bin,
+            # and the vote taps of the input at input_bin - tf and
+            # input_bin - longv*tf; in the randomised regime the four vote
+            # sets at the drawn factors
+            rows_list = ([rows(input_eff[:, :, c]) for c in range(ch)]
+                         + [rows(prev_eff[:, :, c]) for c in range(ch)]
+                         + [rows(in_energy[:, :, c]) for c in range(ch)])
+            if any_random:
+                pos = torch.stack([pos[:, 0]] + _random_vote_positions(
+                    pos[:, 0], btf1, btf2, longv), 1)
+            specs = [(pos[:, 0], 3 * ch)] + [(pos[:, k], ch)
+                                              for k in range(1, pos.shape[1])]
+            vals, *votes = _lookup(rows_list, specs, pos, plain, batch,
+                                   dbg if debug else None)
+            pos_grad = torch.clamp(freq_grad.reshape(batch, nB, B), min=0)
+            pi = vals[:ch]
+            prev_i = vals[ch:2 * ch]
+            pe = [v * pos_grad for v in vals[2 * ch:]]
         else:
-            votes = [[interp._interp_shift_static(p, tf) for p in pi],
-                     [interp._interp_shift_static(p, ltf) for p in pi]]
+            pe = [in_energy[:, :, c] for c in range(ch)]
+            pi = [input_eff[:, :, c] for c in range(ch)]
+            prev_i = [prev_eff[:, :, c] for c in range(ch)]
+            if any_random:
+                # per-bin vote positions about the identity map, b less the
+                # drawn factors: four sets over the input's planes (kernel A)
+                base = torch.arange(B, dtype=torch.float32, device=dev)
+                pos = torch.stack(_random_vote_positions(base, btf1, btf2,
+                                                         longv), 1)
+                votes = _lookup([rows(p) for p in pi],
+                                [(pos[:, k], ch) for k in range(4)], pos,
+                                plain, batch, dbg if debug else None)
+            else:
+                votes = [[interp._interp_shift_static(p, tf) for p in pi],
+                         [interp._interp_shift_static(p, ltf) for p in pi]]
 
-    pe_prev = [F.pad(x[:, :-1], (0, 0, 1, 0)) for x in pe]
-    if new.all():
-        rotor_eff = rotor
-    else:
-        rotor_eff = torch.where(torch.as_tensor(new, device=dev)[:, None],
-                                rotor, torch.ones((), dtype=rotor.dtype,
-                                                  device=dev))   # [nB, B]
-    c1 = [_cdivr(rotor_eff * _cmulc(pi[c], prev_i[c]),
-                 torch.maximum(pe_prev[c], pe[c]) + NOISE_FLOOR)
-          for c in range(ch)]
+    with span("sst.plan.coefficients"):
+        pe_prev = [F.pad(x[:, :-1], (0, 0, 1, 0)) for x in pe]
+        if new.all():
+            rotor_eff = rotor
+        else:
+            rotor_eff = torch.where(
+                torch.as_tensor(new, device=dev)[:, None], rotor,
+                torch.ones((), dtype=rotor.dtype, device=dev))   # [nB, B]
+        c1 = [_cdivr(rotor_eff * _cmulc(pi[c], prev_i[c]),
+                     torch.maximum(pe_prev[c], pe[c]) + NOISE_FLOOR)
+              for c in range(ch)]
 
-    # ---- main-prediction coefficients (:722-803) --------------------------
-    mc = torch.argmax(torch.stack(pe, 0), 0).to(torch.int32)
-    pi_max = _sel(mc, pi)
-    b_idx = torch.arange(B, device=dev)
-    sd, ld = votes[:2]
-    d1 = _where0(b_idx > 0, _cmulc(pi_max, _sel(mc, sd)))
-    d2 = _where0(b_idx >= longv, _cmulc(pi_max, _sel(mc, ld)))
-    if any_random:
-        # the up votes draw their own factors (btf2): their own lookups
-        up_short, up_long = _sel(mc, votes[2]), _sel(mc, votes[3])
-    else:
-        # both vote branches use the same binTimeFactor, so the up
-        # positions are the down positions shifted one (or longv) bins up
-        # (:764-786)
-        up_short = _sel(mc, [_shift_up(x, 1) for x in sd])
-        up_long = _sel(mc, [_shift_up(x, longv) for x in ld])
-    pi_up1 = _sel(mc, [_shift_up(x, 1) for x in pi])
-    pi_upl = _sel(mc, [_shift_up(x, longv) for x in pi])
-    c1_up1 = _sel(mc, [_shift_up(x, 1) for x in c1])
-    c1_upl = _sel(mc, [_shift_up(x, longv) for x in c1])
-    a1 = _where0(b_idx < B - 1, _cmulc(c1_up1, _cmulc(pi_up1, up_short)))
-    a2 = _where0(b_idx < B - longv, _cmulc(c1_upl, _cmulc(pi_upl, up_long)))
+        # ---- main-prediction coefficients (:722-803) ----------------------
+        mc = torch.argmax(torch.stack(pe, 0), 0).to(torch.int32)
+        pi_max = _sel(mc, pi)
+        b_idx = torch.arange(B, device=dev)
+        sd, ld = votes[:2]
+        d1 = _where0(b_idx > 0, _cmulc(pi_max, _sel(mc, sd)))
+        d2 = _where0(b_idx >= longv, _cmulc(pi_max, _sel(mc, ld)))
+        if any_random:
+            # the up votes draw their own factors (btf2): their own lookups
+            up_short, up_long = _sel(mc, votes[2]), _sel(mc, votes[3])
+        else:
+            # both vote branches use the same binTimeFactor, so the up
+            # positions are the down positions shifted one (or longv) bins
+            # up (:764-786)
+            up_short = _sel(mc, [_shift_up(x, 1) for x in sd])
+            up_long = _sel(mc, [_shift_up(x, longv) for x in ld])
+        pi_up1 = _sel(mc, [_shift_up(x, 1) for x in pi])
+        pi_upl = _sel(mc, [_shift_up(x, longv) for x in pi])
+        c1_up1 = _sel(mc, [_shift_up(x, 1) for x in c1])
+        c1_upl = _sel(mc, [_shift_up(x, longv) for x in c1])
+        a1 = _where0(b_idx < B - 1, _cmulc(c1_up1, _cmulc(pi_up1, up_short)))
+        a2 = _where0(b_idx < B - longv,
+                     _cmulc(c1_upl, _cmulc(pi_upl, up_long)))
 
     result = SweepInputs(a1=a1, a2=a2, d1=d1, d2=d2, mc=mc,
                          pe=tuple(pe), pi=tuple(pi))

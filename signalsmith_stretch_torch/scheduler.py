@@ -35,6 +35,7 @@ import numpy as np
 from .config import StretchConfig, device_for
 from .spectral import Controls, SpectralFlags
 from .streaming import StreamingStretch
+from .utils.profiling import span
 
 f32 = np.float32
 
@@ -204,30 +205,34 @@ class StretchNode:
                         ) -> np.ndarray:
         n = self.quantum
         sr = self.sample_rate
-        t = self._out_time + self.cfg.output_latency / sr
-        seg = self._segment_at(t)
+        with span("sst.node.quantum"):
+            with span("sst.node.history"):
+                t = self._out_time + self.cfg.output_latency / sr
+                seg = self._segment_at(t)
+                active = seg is not None and seg.active
+                if active:
+                    eng = self._engine_for(seg)
+                if active and live_input is None:
+                    # buffer playback: fill history, constant re-seek
+                    # (:267-322)
+                    buf_len = self.cfg.input_latency + self.cfg.output_latency
+                    in_t = seg.input_at(t)
+                    end = int(round(in_t * sr))
+                    hist = self._read_store(end - buf_len, buf_len)
 
-        if seg is None or not seg.active:
-            out = np.zeros((self.channels, n), np.float32)
+            if not active:
+                out = np.zeros((self.channels, n), np.float32)
+            elif live_input is not None:
+                live_input = np.asarray(live_input, np.float32)
+                out = eng.process(live_input[:, :n], n)
+                self._input_time = self._out_time
+            else:
+                self._input_time = in_t
+                eng.seek(hist, seg.rate)
+                out = eng.process(np.zeros((self.channels, 0), np.float32),
+                                  n)
             self._advance(n)
             return out
-
-        eng = self._engine_for(seg)
-        if live_input is not None:
-            live_input = np.asarray(live_input, np.float32)
-            out = eng.process(live_input[:, :n], n)
-            self._input_time = self._out_time
-        else:
-            # buffer playback: fill history, constant re-seek (:267-322)
-            buf_len = self.cfg.input_latency + self.cfg.output_latency
-            in_t = seg.input_at(t)
-            self._input_time = in_t
-            end = int(round(in_t * sr))
-            hist = self._read_store(end - buf_len, buf_len)
-            eng.seek(hist, seg.rate)
-            out = eng.process(np.zeros((self.channels, 0), np.float32), n)
-        self._advance(n)
-        return out
 
     def _advance(self, n: int):
         dt = n / self.sample_rate

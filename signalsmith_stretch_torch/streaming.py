@@ -30,6 +30,7 @@ import torch
 
 from . import spectral, stft
 from .config import NOISE_FLOOR, StretchConfig, device_for
+from .utils.profiling import span
 
 f32 = np.float32
 _BIG = 1 << 30
@@ -159,42 +160,50 @@ class StreamingStretch:
     def process(self, audio_in, n_out: int) -> np.ndarray:
         audio = self._input(audio_in)
         x = torch.as_tensor(audio, device=self.device)
-        return self._process(audio, x, int(n_out)).cpu().numpy()
+        out = self._process(audio, x, int(n_out))
+        with span("sst.stream.output"):      # the host waits for the card
+            return out.cpu().numpy()
 
     def _process(self, audio: np.ndarray, x: torch.Tensor,
                  n_out: int) -> torch.Tensor:
         """One process() call on the host copy of its input (for the
         silence test) and the device copy (for the timeline); the output
         [ch, n_out] stays on the device."""
-        cfg, st = self.cfg, self.state
-        ch, block, H = cfg.channels, cfg.block_samples, cfg.interval_samples
-        n_in = audio.shape[1]
-        hist_base = block + H + 1
-        timeline = torch.cat([st.in_hist, x], 1)
-        new_hist = timeline[:, timeline.shape[1] - hist_base:]
-        is_silent = bool(_energy(audio) < f32(NOISE_FLOOR))
+        with span("sst.stream.process"):
+            cfg, st = self.cfg, self.state
+            ch, block, H = (cfg.channels, cfg.block_samples,
+                            cfg.interval_samples)
+            n_in = audio.shape[1]
+            hist_base = block + H + 1
+            timeline = torch.cat([st.in_hist, x], 1)
+            new_hist = timeline[:, timeline.shape[1] - hist_base:]
+            is_silent = bool(_energy(audio) < f32(NOISE_FLOOR))
 
-        out = None           # the bypass's, else the normal path's
-        if is_silent:
-            if st.silence_counter >= 2 * block:
-                # the silence bypass (:240-278): the input passes through
-                carry, ssl = st.carry, st.samples_since_last
-                if st.silence_first:          # the first silent block clears
-                    z = torch.zeros_like(carry.input)
-                    carry = carry._replace(input=z, prev_input=z, output=z)
-                    ssl = _BIG
-                if n_in > 0:
-                    out = x[:, torch.arange(n_out, device=self.device) % n_in]
+            out = None           # the bypass's, else the normal path's
+            if is_silent:
+                if st.silence_counter >= 2 * block:
+                    # the silence bypass (:240-278): the input passes through
+                    with span("sst.stream.bypass"):
+                        carry, ssl = st.carry, st.samples_since_last
+                        if st.silence_first:   # the first silent block clears
+                            z = torch.zeros_like(carry.input)
+                            carry = carry._replace(input=z, prev_input=z,
+                                                   output=z)
+                            ssl = _BIG
+                        if n_in > 0:
+                            idx = torch.arange(n_out, device=self.device)
+                            out = x[:, idx % n_in]
+                        else:
+                            out = x.new_zeros((ch, n_out))
+                        st = st._replace(carry=carry, samples_since_last=ssl,
+                                         silence_first=False)
                 else:
-                    out = x.new_zeros((ch, n_out))
-                st = st._replace(carry=carry, samples_since_last=ssl,
-                                 silence_first=False)
-            else:
-                st = st._replace(silence_counter=st.silence_counter + n_in)
-        if out is None:
-            st, out = self._normal(st, timeline, n_in, n_out, is_silent)
-        self.state = st._replace(in_hist=new_hist)
-        return out
+                    st = st._replace(
+                        silence_counter=st.silence_counter + n_in)
+            if out is None:
+                st, out = self._normal(st, timeline, n_in, n_out, is_silent)
+            self.state = st._replace(in_hist=new_hist)
+            return out
 
     def _normal(self, st: StreamState, timeline, n_in: int, n_out: int,
                 is_silent: bool):
@@ -219,35 +228,44 @@ class StreamingStretch:
         carry, prev_offset = st.carry, st.prev_input_offset
         did_seek = st.did_seek
         for k in range(n_blocks):
-            o_k = o0 + k * H
-            # the reference's float32 block arithmetic (:281-325)
-            pos_f = f32(f32(o_k) * f32(n_in)) / f32(max(n_out, 1))
-            input_offset = int(np.floor(f32(pos_f + f32(0.5))))
-            interval = input_offset - prev_offset
-            new_spectrum = did_seek or interval > 0
-            reanalyse = new_spectrum and (did_seek or abs(interval - H) > 1)
-            time_factor = (st.seek_time_factor if did_seek else
-                           f32(f32(H) / max(f32(1), f32(interval))))
-            head = hist_base + input_offset
-            # the block's frame and the one an interval before, analysed in
-            # one call (kernel D)
-            frames = torch.cat([timeline[:, head - block:head],
-                                timeline[:, head - H - block:head - H]])
-            specs = stft.analyze(frames, self.basis, self.plain)
-            xs = spectral.BlockInputs(specs[:ch], specs[ch:], new_spectrum,
-                                      reanalyse, time_factor)
-            carry, out_spec = spectral.process_block(
-                carry, xs, self.controls, self.flags, self.consts,
-                self.plain)
-            self.blocks += 1
-            pos = o_k + split_shift
-            buf[:, pos:pos + block] += stft.synthesize(out_spec, self.basis)
-            wbuf[pos:pos + block] += self._w2
-            prev_offset, did_seek = input_offset, False
+            with span("sst.stream.block"):
+                o_k = o0 + k * H
+                # the reference's float32 block arithmetic (:281-325)
+                pos_f = f32(f32(o_k) * f32(n_in)) / f32(max(n_out, 1))
+                input_offset = int(np.floor(f32(pos_f + f32(0.5))))
+                interval = input_offset - prev_offset
+                new_spectrum = did_seek or interval > 0
+                reanalyse = new_spectrum and (did_seek
+                                              or abs(interval - H) > 1)
+                time_factor = (st.seek_time_factor if did_seek else
+                               f32(f32(H) / max(f32(1), f32(interval))))
+                head = hist_base + input_offset
+                with span("sst.stream.block.analysis"):
+                    # the block's frame and the one an interval before,
+                    # analysed in one call (kernel D)
+                    frames = torch.cat([
+                        timeline[:, head - block:head],
+                        timeline[:, head - H - block:head - H]])
+                    specs = stft.analyze(frames, self.basis, self.plain)
+                    xs = spectral.BlockInputs(specs[:ch], specs[ch:],
+                                              new_spectrum, reanalyse,
+                                              time_factor)
+                with span("sst.stream.block.spectral"):
+                    carry, out_spec = spectral.process_block(
+                        carry, xs, self.controls, self.flags, self.consts,
+                        self.plain)
+                self.blocks += 1
+                with span("sst.stream.block.synthesis"):
+                    pos = o_k + split_shift
+                    buf[:, pos:pos + block] += stft.synthesize(out_spec,
+                                                               self.basis)
+                    wbuf[pos:pos + block] += self._w2
+                prev_offset, did_seek = input_offset, False
 
         ssl = (n_out - (o0 + (n_blocks - 1) * H) if n_blocks > 0
                else min(ssl0 + n_out, _BIG))
-        out = buf[:, :n_out] / torch.clamp(wbuf[:n_out], min=0.1)
+        with span("sst.stream.output"):
+            out = buf[:, :n_out] / torch.clamp(wbuf[:n_out], min=0.1)
         st = st._replace(carry=carry, out_tail=buf[:, n_out:n_out + tail_len],
                          weight_tail=wbuf[n_out:n_out + tail_len],
                          samples_since_last=ssl,
@@ -258,30 +276,31 @@ class StreamingStretch:
     # ---- seek (:139-165) --------------------------------------------------
     def seek(self, audio_in, playback_rate: float):
         """Prime the input history, latch the seek time factor."""
-        audio = self._input(audio_in)
-        self._seek(audio, torch.as_tensor(audio, device=self.device),
-                   playback_rate)
+        self._seek(self._input(audio_in), None, playback_rate)
 
-    def _seek(self, audio: np.ndarray, x: torch.Tensor, playback_rate):
+    def _seek(self, audio: np.ndarray, x, playback_rate):
         """seek() on the host copy of its input (the energy) and the device
-        copy (the history)."""
-        cfg, st = self.cfg, self.state
-        block, H = cfg.block_samples, cfg.interval_samples
-        n_in = audio.shape[1]
-        buf_len = block + H
-        if n_in >= buf_len:
-            window = x[:, n_in - buf_len:]
-        else:
-            window = torch.cat([x.new_zeros((cfg.channels, buf_len - n_in)),
-                                x], 1)
-        hist = torch.cat([st.in_hist[:, -1:], window], 1)
-        live = bool(_energy(audio) >= f32(NOISE_FLOOR))
-        rate = f32(playback_rate)
-        stf = f32(f32(1) / rate) if rate * f32(H) > 1 else f32(H)
-        self.state = st._replace(
-            in_hist=hist, did_seek=True, seek_time_factor=stf,
-            silence_counter=0 if live else st.silence_counter,
-            silence_first=True if live else st.silence_first)
+        copy (the history), made here where x is None."""
+        with span("sst.stream.seek"):
+            if x is None:
+                x = torch.as_tensor(audio, device=self.device)
+            cfg, st = self.cfg, self.state
+            block, H = cfg.block_samples, cfg.interval_samples
+            n_in = audio.shape[1]
+            buf_len = block + H
+            if n_in >= buf_len:
+                window = x[:, n_in - buf_len:]
+            else:
+                window = torch.cat([
+                    x.new_zeros((cfg.channels, buf_len - n_in)), x], 1)
+            hist = torch.cat([st.in_hist[:, -1:], window], 1)
+            live = bool(_energy(audio) >= f32(NOISE_FLOOR))
+            rate = f32(playback_rate)
+            stf = f32(f32(1) / rate) if rate * f32(H) > 1 else f32(H)
+            self.state = st._replace(
+                in_hist=hist, did_seek=True, seek_time_factor=stf,
+                silence_counter=0 if live else st.silence_counter,
+                silence_first=True if live else st.silence_first)
 
     def seek_length(self) -> int:
         return self.cfg.seek_length

@@ -1,2 +1,2 @@
-"""Profiling utilities of the port (timing, stage breakdowns, the
-allocation guard)."""
+"""Profiling utilities of the port (program spans, timing, stage
+breakdowns, the allocation guard)."""

@@ -1,18 +1,21 @@
-"""Profiling utilities: timing on the card, stage breakdowns, SVG reports.
+"""Profiling utilities: program spans, timing on the card, stage
+breakdowns, SVG reports.
 
 The port of signalsmith_stretch_tpu/utils/profiling.py.  The reference's
 dev harness wraps each processing step in stopwatches and renders an SVG
 (cmd/main-dev.cpp:165-208).  Here:
 
+  - `span()`: a named program span on the profiler's clock, recorded only
+    while torch.profiler records (the `sst.*` spans of the hot paths);
   - `sync()`: wait for the card (torch.cuda.synchronize on the device of a
     tensor, or of the device given); nothing on the CPU;
   - `timed()`: best-of-reps time of a call, between CUDA events on the card
     (after a synchronise), on the host's clock on the CPU;
-  - `stage_times()`: a dict of closures timed that way;
   - `stage_breakdown()`: analysis, plan, sweep, synthesis and the full
     render of a StretchModel, each stage timed alone;
   - `write_svg_bars()`: a dependency-free SVG bar chart (profile.svg);
-  - `trace()`: torch.profiler around a block, its Chrome trace written out;
+  - `trace()`: torch.profiler around a block, its Chrome trace written out
+    (the `sst.*` spans among the CPU operations);
   - `AllocationGuard`: the reference's "no allocation on the audio path"
     (cmd/main-dev.cpp:160) for a call repeated on the same inputs.
 """
@@ -24,6 +27,31 @@ import time
 from typing import Callable, Dict, Optional
 
 import torch
+
+try:
+    from torch._C._autograd import _profiler_enabled
+    from torch._C._profiler import _RecordFunctionFast
+except ImportError:           # a PyTorch without them: spans are off
+    _profiler_enabled = _RecordFunctionFast = None
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A program span: `with span("sst.stream.block"): ...`.
+
+    While torch.profiler records, the block is one CPU operation event
+    named `name`, nested under the span that encloses it on the calling
+    thread; otherwise nothing is recorded and the cost is this call and
+    one check.  Every span of the port is named `sst.<layer>.<phase>`,
+    and a count of spans by name in a traced window is the counter at
+    that boundary (`sst.stream.block`: blocks run).  A span is not a
+    user annotation, so the profiler puts no mirror of it on the device's
+    timeline.  Where this PyTorch lacks the fast record function, a span
+    records nothing."""
+    if _RecordFunctionFast is not None and _profiler_enabled():
+        return _RecordFunctionFast(name)
+    return _OFF
 
 
 def _device_of(value) -> Optional[torch.device]:
@@ -74,12 +102,6 @@ def timed(fn: Callable, *args, reps: int = 3, warmup: int = 1,
             secs = time.perf_counter() - t0
         best = min(best, secs)
     return best
-
-
-def stage_times(stages: Dict[str, Callable],
-                reps: int = 3) -> Dict[str, float]:
-    """Time a dict of closures; returns {name: seconds}."""
-    return {name: timed(fn, reps=reps) for name, fn in stages.items()}
 
 
 def write_svg_bars(path: str, values: Dict[str, float], unit: str = "ms",

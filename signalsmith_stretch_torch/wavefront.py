@@ -25,6 +25,7 @@ from . import spectral
 from .config import NOISE_FLOOR
 from .ops import _build
 from .planner import SweepInputs, plan_spectral
+from .utils.profiling import span
 
 launches = 0          # kernel launches of sweep
 SWEEP_MAX_THREADS = 512   # threads of one CTA (csrc/sweep.cu MAX_THREADS)
@@ -197,7 +198,9 @@ def spectral_all_blocks(spectra, prev_spectra, arrays,
     """Planned pipeline: [batch, nB, ch, B] spectra -> [batch, ch, nB, B]
     output spectra (channels-major, as the synthesis stage consumes them).
     seeds: one integer a clip for the randomised regime (plan_spectral)."""
-    inputs = plan_spectral(spectra, prev_spectra, arrays, controls, flags,
-                           consts, plain=plain, seeds=seeds)
+    with span("sst.render.plan"):
+        inputs = plan_spectral(spectra, prev_spectra, arrays, controls,
+                               flags, consts, plain=plain, seeds=seeds)
     longv = consts.long_vertical_step
-    return sweep_plain(inputs, longv) if plain else sweep(inputs, longv)
+    with span("sst.render.sweep"):
+        return sweep_plain(inputs, longv) if plain else sweep(inputs, longv)
