@@ -24,7 +24,8 @@ Phases, in order; any failure exits non-zero before the last line:
      auto-base formant configuration's metric the decay scans (E: the
      envelope's eight passes in one launch, and each single pass) and the
      top-3 scan (F, also on corner rows); every kernel but D bit-equal, C
-     and E in their outputs and final values.  C, E and F are also timed on one
+     and E in their outputs and final values; the prediction coefficients
+     (J) on the pitch+12 planner's arguments.  C, E and F are also timed on one
      row (`chain_ms`): for C and E one lane runs the whole chain, the
      card's own serial floor for that work; for F one warp;
      Above 2x (the randomised regime): A on the 3x cell's four per-bin
@@ -117,7 +118,8 @@ against those of an earlier peaks.cu built from FILE (for instance
 `git show HEAD:signalsmith_stretch_torch/csrc/peaks.cu`), bit-equal, then
 in turns on the pitch+12 cell's planner rows and at one row; with
 `--scheduler-parallel`, phases 9 and 10 alone (after the header and the
-build).
+build); with `--coefficients`, J alone on the planner's arguments of
+pitch+12 and 1.25x at batch 8 and 32 (after the header and the build).
 
 There is no CPU fallback: without CUDA the script fails.
 """
@@ -206,6 +208,9 @@ KERNELS = (
     # the draws above 2x (jax.random.uniform, offline and per stream block)
     ("draws", "signalsmith_stretch_torch/csrc/draws.cu",
      "signalsmith_stretch_tpu/planner.py:485"),
+    # the offline planner's prediction coefficients (plain jnp, XLA-fused)
+    ("coefficients", "signalsmith_stretch_torch/csrc/coefficients.cu",
+     "signalsmith_stretch_tpu/planner.py:562"),
 )
 DFT_TOL = 3e-6        # of the spectrum's peak magnitude (tests/test_stft.py)
 
@@ -646,6 +651,7 @@ def check_kernels():
           f"({bound[1]})")
     entries["sweep"] = dict(max_abs_err=err, ms=ms, ms_b2b=b2b,
                             plain_ms=plain, bound=bound)
+    entries["coefficients"] = check_coefficients(dbg["coefficients"])
     del inputs, dbg, audio
     torch.cuda.empty_cache()
     entries["dft"] = check_dft()
@@ -659,6 +665,62 @@ def check_kernels():
               + (f"{lib:.3f} ms" if lib is not None else
                  "none (no single PyTorch call computes it)"))
     return entries
+
+
+def check_coefficients(args, label="pitch+12"):
+    """J against its plain version on a planner's arguments: every output
+    bit-equal; timed alone, back to back, and the plain version (its
+    PyTorch operations); bound: bytes, each input plane read once and
+    each output written once."""
+    import torch
+    from signalsmith_stretch_torch.ops import coefficients
+    got = coefficients.coefficients(*args)
+    ref = coefficients.coefficients_plain(*args)
+    for name, g, r in zip(("a1", "a2", "d1", "d2", "mc"), got, ref):
+        if not torch.equal(g, r):
+            raise SystemExit(f"coefficients ({label}): kernel's {name} "
+                             f"differs from the plain version, max abs "
+                             f"{max_abs(g, r)}")
+    pi, _, pe, votes, _, new, longv = args
+    batch, nB, B = pe[0].shape
+    ch, bins = len(pi), batch * nB * B
+    # per bin and channel pi, prev_i and the votes (8 B), pe (4 B); per
+    # bin a1, a2, d1, d2 (8 B) and mc (4 B) written; ~70 flops
+    nbytes = bins * (ch * (8 * (2 + len(votes)) + 4) + 4 * 8 + 4)
+    bound = bound_ms(nbytes, bins * (68 + ch))
+    ms = cuda_ms(lambda: coefficients.coefficients(*args), KERNEL_REPS)
+    b2b = cuda_ms_b2b(lambda: coefficients.coefficients(*args), KERNEL_REPS)
+    plain = cuda_ms(lambda: coefficients.coefficients_plain(*args),
+                    PLAIN_REPS)
+    print(f"J coefficients ({label}): [batch {batch}, nB {nB}, B {B}], ch "
+          f"{ch}, LV {longv}, {len(votes)} vote sets, "
+          f"{int((~np.asarray(new)).sum())} blocks not new: bit-equal to "
+          f"the plain version; {ms:.4f} ms alone, {b2b:.4f} ms back to "
+          f"back, plain {plain:.2f} ms; bound {bound[0]:.4f} ms "
+          f"({bound[1]}: {nbytes / 1e9:.3f} GB), {100 * bound[0] / b2b:.0f}% "
+          f"of it back to back")
+    return dict(max_abs_err=0.0, ms=ms, ms_b2b=b2b, plain_ms=plain,
+                bound=bound)
+
+
+def coefficients_only():
+    """J alone (`--coefficients`): bit-equal to its plain version and timed
+    on the planner's arguments of pitch+12 and 1.25x, at BATCH clips and at
+    the benchmark's 32."""
+    import torch
+    from signalsmith_stretch_torch import engine, planner
+    for cfg in (MAPPED, STRETCH):
+        for batch in (BATCH, 32):
+            model, clips = _model(cfg, batch)
+            audio = torch.as_tensor(clips, device=DEVICE)
+            plan = model.plan
+            spectra, prev = engine.analyze_stage(audio, plan)
+            _, dbg = planner.plan_spectral(spectra, prev, plan.arrays,
+                                           model.controls, model.flags,
+                                           plan.consts, debug=True)
+            check_coefficients(dbg["coefficients"], f"{cfg[0]}, batch {batch}")
+            del audio, spectra, prev, dbg
+            torch.cuda.empty_cache()
 
 
 def check_slew_scan(x, slew):
@@ -1201,25 +1263,28 @@ def check_formant_scans():
 
 def counters():
     from signalsmith_stretch_torch import wavefront
-    from signalsmith_stretch_torch.ops import (block_sweep, dft, draws,
-                                               interp, peaks, scan_ops)
+    from signalsmith_stretch_torch.ops import (block_sweep, coefficients,
+                                               dft, draws, interp, peaks,
+                                               scan_ops)
     return {"interp_multi": interp.launches, "sweep": wavefront.launches,
             "iir": scan_ops.launches, "dft": dft.launches,
             "decay": scan_ops.decay_launches,
             "top3": scan_ops.top3_launches, "peaks_map": peaks.launches,
             "peaks_runs": peaks.runs_launches,
             "peaks_out": peaks.out_launches,
-            "block_sweep": block_sweep.launches, "draws": draws.launches}
+            "block_sweep": block_sweep.launches, "draws": draws.launches,
+            "coefficients": coefficients.launches}
 
 
 def reset_counters():
     from signalsmith_stretch_torch import wavefront
-    from signalsmith_stretch_torch.ops import (block_sweep, dft, draws,
-                                               interp, peaks, scan_ops)
+    from signalsmith_stretch_torch.ops import (block_sweep, coefficients,
+                                               dft, draws, interp, peaks,
+                                               scan_ops)
     interp.launches = wavefront.launches = scan_ops.launches = 0
     dft.launches = scan_ops.decay_launches = scan_ops.top3_launches = 0
     peaks.launches = peaks.runs_launches = peaks.out_launches = 0
-    block_sweep.launches = draws.launches = 0
+    block_sweep.launches = draws.launches = coefficients.launches = 0
 
 
 def is_random(plan):
@@ -1237,7 +1302,8 @@ def expected_launches(flags, random=False):
     (F) and the two freqEstimate chains over blocks, stacked in one launch
     of C.  Under a custom map G's runs and out entries take the place of
     its one launch.  Above 2x, one launch of I draws every clip's per-bin
-    time factors."""
+    time factors.  J forms every render's prediction coefficients in one
+    launch."""
     auto = flags.process_formants and flags.formant_auto
     custom = flags.mapped and flags.custom_map is not None
     return {"interp_multi": int(flags.mapped or random), "sweep": 1,
@@ -1245,7 +1311,7 @@ def expected_launches(flags, random=False):
             "decay": int(flags.process_formants), "top3": int(auto),
             "peaks_map": int(flags.mapped and not custom),
             "peaks_runs": int(custom), "peaks_out": int(custom),
-            "block_sweep": 0, "draws": int(random)}
+            "block_sweep": 0, "draws": int(random), "coefficients": 1}
 
 
 def stage_split(model, audio):
@@ -1777,7 +1843,8 @@ def expected_stream_launches(flags, blocks, drawn=0):
     estimated (the estimate's step); G once a block when mapped (its runs
     and out entries under a custom map); E once a block for formants, F
     with the base estimated; I once in each of the `drawn` blocks above
-    2x (a flush at rate 0 runs such blocks too)."""
+    2x (a flush at rate 0 runs such blocks too).  J never: a block forms
+    its coefficients in process_block."""
     auto = flags.process_formants and flags.formant_auto
     custom = flags.mapped and flags.custom_map is not None
     return {"interp_multi": blocks, "sweep": 0,
@@ -1787,7 +1854,7 @@ def expected_stream_launches(flags, blocks, drawn=0):
             "peaks_map": blocks * int(flags.mapped and not custom),
             "peaks_runs": blocks * int(custom),
             "peaks_out": blocks * int(custom), "block_sweep": blocks,
-            "draws": drawn}
+            "draws": drawn, "coefficients": 0}
 
 
 def _record_blocks(engine, clip, time_factor, n):
@@ -2979,6 +3046,11 @@ def main():
         return prior_block_sweep(sys.argv[2])
     if sys.argv[1:2] == ["--prior-peaks-split"] and len(sys.argv) == 3:
         return prior_peaks_split(sys.argv[2])
+    if sys.argv[1:] == ["--coefficients"]:
+        header()
+        build_kernels()
+        coefficients_only()
+        return print(smi_line())
     if sys.argv[1:] == ["--scheduler-parallel"]:
         header()
         build_kernels()

@@ -56,6 +56,8 @@ ENTRY = {
     # key words unsigned (a seed of 2**31 or more), bounds as float32
     "draws_block": ("draws", "sst_draws_block", [ctypes.c_uint32] * 2
                     + [ctypes.c_float] * 2 + [_P, _I, _P]),
+    "coefficients": ("coefficients", "sst_coefficients",
+                     [_P] * 8 + [_I] * 6 + [_P]),
 }
 SOURCES = tuple(dict.fromkeys(source for source, _, _ in ENTRY.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -17,10 +17,11 @@ a batch at once, in complex64:
     C) unless a base frequency is given, the envelope's eight decay passes
     (kernel E, one launch), and the envelope ratio that rescales the input
     energies;
-  - the prediction energies, the c1 chain coefficient and the four vote
-    coefficients a1, a2, d1, d2 of the main prediction (:722-803); above
-    2x (randomised phases, :747-757) the votes read per-bin positions
-    drawn from each clip's seed (prng.py), in one launch of kernel A.
+  - the prediction energies; above 2x (randomised phases, :747-757) the
+    votes read per-bin positions drawn from each clip's seed (prng.py), in
+    one launch of kernel A; then the c1 chain coefficient, the loudest
+    channel and the four vote coefficients a1, a2, d1, d2 of the main
+    prediction (:722-803) in one launch (kernel J).
 
 Controls may be scalars or per-block [nB] arrays (automation); the peaks
 map (G), the formant targets and the given formant base then take each
@@ -36,8 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from . import prng, spectral
-from .config import MAX_CLEAN_STRETCH, NOISE_FLOOR
-from .ops import draws, interp, peaks, scan_ops
+from .config import MAX_CLEAN_STRETCH
+from .ops import coefficients, draws, interp, peaks, scan_ops
 from .utils.profiling import span
 
 f32 = np.float32
@@ -54,31 +55,10 @@ class SweepInputs(NamedTuple):
     pi: tuple             # ch x complex64 prediction inputs
 
 
-def _sel(mc, items):
-    out = torch.zeros_like(items[0])
-    for c, it in enumerate(items):
-        out = torch.where(mc == c, it, out)
-    return out
-
-
-def _cmulc(a, b):
-    """a * conj(b)."""
-    return a * torch.conj(b)
-
-
 def _cdivr(a, den):
     """complex / real, component-wise (what XLA's complex division gives for
     a zero imaginary divisor; torch's complex division rounds differently)."""
     return torch.complex(a.real / den, a.imag / den)
-
-
-def _shift_up(x, n):
-    """x[..., b] -> x[..., b+n] (zeros beyond the end)."""
-    return F.pad(x[..., n:], (0, n))
-
-
-def _where0(cond, x):
-    return torch.where(cond, x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _formant_targets(controls: spectral.Controls, compensation: bool, B: int,
@@ -264,8 +244,8 @@ def _random_vote_positions(base, btf1, btf2, longv: int):
     the top bins, whose positions go negative: A reads 0 there, and a1/a2
     mask those bins."""
     return [base - btf1, base - float(longv) * btf1,
-            _shift_up(base, 1) - btf2,
-            _shift_up(base, longv) - float(longv) * btf2]
+            coefficients.shift_up(base, 1) - btf2,
+            coefficients.shift_up(base, longv) - float(longv) * btf2]
 
 
 def _lookup(rows_list, specs, pos, plain: bool, batch: int, dbg):
@@ -326,8 +306,9 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
         if (src_input == idx).all():
             input_eff = spectra
         else:
-            input_eff = _where0(bmask(src_input >= 0),
-                                blocks(spectra, np.maximum(src_input, 0)))
+            input_eff = coefficients.where0(
+                bmask(src_input >= 0),
+                blocks(spectra, np.maximum(src_input, 0)))
         if reanalyse.all():
             prev_base = prev_spectra
         else:
@@ -337,7 +318,8 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
                                   src_input >= 0)
             prev_base = torch.where(bmask(reanalyse), prev_spectra,
                                     blocks(spectra, base_idx))
-            prev_base = _where0(bmask(base_valid | reanalyse), prev_base)
+            prev_base = coefficients.where0(bmask(base_valid | reanalyse),
+                                            prev_base)
         if new.all():
             prev_eff = prev_base * rotor
         else:
@@ -447,41 +429,13 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
                 votes = [[interp._interp_shift_static(p, tf) for p in pi],
                          [interp._interp_shift_static(p, ltf) for p in pi]]
 
+    # ---- the chain and vote coefficients (:722-803): one launch (kernel J)
     with span("sst.plan.coefficients"):
-        pe_prev = [F.pad(x[:, :-1], (0, 0, 1, 0)) for x in pe]
-        if new.all():
-            rotor_eff = rotor
-        else:
-            rotor_eff = torch.where(
-                torch.as_tensor(new, device=dev)[:, None], rotor,
-                torch.ones((), dtype=rotor.dtype, device=dev))   # [nB, B]
-        c1 = [_cdivr(rotor_eff * _cmulc(pi[c], prev_i[c]),
-                     torch.maximum(pe_prev[c], pe[c]) + NOISE_FLOOR)
-              for c in range(ch)]
-
-        # ---- main-prediction coefficients (:722-803) ----------------------
-        mc = torch.argmax(torch.stack(pe, 0), 0).to(torch.int32)
-        pi_max = _sel(mc, pi)
-        b_idx = torch.arange(B, device=dev)
-        sd, ld = votes[:2]
-        d1 = _where0(b_idx > 0, _cmulc(pi_max, _sel(mc, sd)))
-        d2 = _where0(b_idx >= longv, _cmulc(pi_max, _sel(mc, ld)))
-        if any_random:
-            # the up votes draw their own factors (btf2): their own lookups
-            up_short, up_long = _sel(mc, votes[2]), _sel(mc, votes[3])
-        else:
-            # both vote branches use the same binTimeFactor, so the up
-            # positions are the down positions shifted one (or longv) bins
-            # up (:764-786)
-            up_short = _sel(mc, [_shift_up(x, 1) for x in sd])
-            up_long = _sel(mc, [_shift_up(x, longv) for x in ld])
-        pi_up1 = _sel(mc, [_shift_up(x, 1) for x in pi])
-        pi_upl = _sel(mc, [_shift_up(x, longv) for x in pi])
-        c1_up1 = _sel(mc, [_shift_up(x, 1) for x in c1])
-        c1_upl = _sel(mc, [_shift_up(x, longv) for x in c1])
-        a1 = _where0(b_idx < B - 1, _cmulc(c1_up1, _cmulc(pi_up1, up_short)))
-        a2 = _where0(b_idx < B - longv,
-                     _cmulc(c1_upl, _cmulc(pi_upl, up_long)))
+        coefs = (coefficients.coefficients_plain if plain
+                 else coefficients.coefficients)
+        a1, a2, d1, d2, mc = coefs(pi, prev_i, pe, votes, rotor, new, longv)
+    if debug:
+        dbg.update(coefficients=(pi, prev_i, pe, votes, rotor, new, longv))
 
     result = SweepInputs(a1=a1, a2=a2, d1=d1, d2=d2, mc=mc,
                          pe=tuple(pe), pi=tuple(pi))

@@ -6,7 +6,7 @@ without JAX run them without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances.  Kernels A, B, C, E, F, G, H and I: bit equality.  They are
+Tolerances.  Kernels A, B, C, E, F, G, H, I and J: bit equality.  They are
 built with --fmad=false and IEEE division and square root, so they round
 at the same points as the plain versions, which are written as separate
 float32 PyTorch ops (H's in numpy on a CPU copy, with the fused
@@ -346,7 +346,7 @@ def test_interp_stacked_positions_match_list(dev):
 
 
 def test_planner_launches(dev):
-    """The mapped planner launches G once (and A and C once each); with
+    """The mapped planner launches G once (and A, C and J once each); with
     plain=True it launches no kernel."""
     from signalsmith_stretch_torch import engine, planner, wavefront
     from signalsmith_stretch_torch.ops import peaks
@@ -363,7 +363,8 @@ def test_planner_launches(dev):
         counts = chip_smoke.counters()
         assert counts["peaks_map"] == counts["interp_multi"] == want
         assert counts["iir"] == want and peaks.launches == want
-        assert sum(counts.values()) == 3 * want
+        assert counts["coefficients"] == want
+        assert sum(counts.values()) == 4 * want
     assert wavefront.launches == 0
 
 
@@ -1047,3 +1048,83 @@ def test_stream_blocks_3x_draw(dev):
     want = chip_smoke.expected_stream_launches(eng.flags, 1, 1)
     want["dft"] = 1
     assert chip_smoke.counters() == want
+
+
+# ---------------------------------------------------------------------------
+# Kernel J: the prediction coefficients of the offline planner
+# ---------------------------------------------------------------------------
+def _coefficient_planes(dev, ch, longv, drawn):
+    """Random planes of 2 clips x 5 blocks x 1000 bins (not a multiple of
+    J's 256 threads), blocks 1 and 3 not new; pi and pe channel views of
+    [batch, nB, ch, B] tensors; ties and zeros among the energies."""
+    rng = np.random.default_rng(20 + 3 * ch + longv)
+    batch, nB, B = 2, 5, 1000
+
+    def cplx(*shape):
+        z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return _t(z.astype(np.complex64), dev)
+
+    pe = rng.uniform(0, 2, (batch, nB, ch, B)).astype(np.float32)
+    pe[..., ::7] = 0
+    pe[..., 3::11] = pe[..., :1, 3::11]
+    new = np.array([True, False, True, False, True])
+    votes = [[cplx(batch, nB, B) for _ in range(ch)]
+             for _ in range(4 if drawn else 2)]
+    return (cplx(batch, nB, ch, B).unbind(2),
+            [cplx(batch, nB, B) for _ in range(ch)], _t(pe, dev).unbind(2),
+            votes, cplx(B), new, longv)
+
+
+def _planner_coefficient_args(dev, case):
+    """J's arguments as the planner passes them, 8 kHz stereo, 2 clips."""
+    from signalsmith_stretch_torch import engine, planner
+    ratio, semitones = {"unmapped": (1.25, 0), "mapped": (1.0, 12),
+                        "3x": (3.0, 0), "2.5x_pitch+2": (2.5, 2),
+                        "not_all_new": (1.25, 0)}[case]
+    model, n = _random_model(dev, ratio, semitones)
+    clip = _t(np.random.default_rng(12).standard_normal((2, 2, n))
+              .astype(np.float32) * 0.1, dev)
+    spectra, prev = engine.analyze_stage(clip, model.plan)
+    arrays = dict(model.plan.arrays)
+    if case == "not_all_new":
+        new = arrays["new_spectrum"].copy()
+        new[2::3] = False
+        arrays.update(new_spectrum=new, reanalyse=arrays["reanalyse"] & new)
+    out, dbg = planner.plan_spectral(spectra, prev, arrays, model.controls,
+                                     model.flags, model.plan.consts,
+                                     debug=True)
+    return dbg["coefficients"], out
+
+
+COEF_SYNTHETIC = [f"ch{c}_lv{lv}_{kind}" for c in (1, 2, 3) for lv in (4, 5, 6)
+                  for kind in ("shifted", "drawn")]
+COEF_PLANNER = ["unmapped", "mapped", "3x", "2.5x_pitch+2", "not_all_new"]
+
+
+@pytest.mark.parametrize("case", COEF_PLANNER + COEF_SYNTHETIC)
+def test_coefficients_kernel_matches_plain(dev, case):
+    """J against its plain version on the card, every output torch.equal:
+    on the planner's own arguments (unmapped, mapped, the randomised regime
+    at 3x and at 2.5x with a pitch shift, a schedule where not every block
+    is new), and on random planes of 1 to 3 channels at LV 4 to 6 with the
+    up votes shifted or drawn; the launch counter moves by one."""
+    from signalsmith_stretch_torch.ops import coefficients
+    if case in COEF_PLANNER:
+        args, out = _planner_coefficient_args(dev, case)
+        assert len(args[3]) == (4 if case in ("3x", "2.5x_pitch+2") else 2)
+        assert args[5].all() == (case != "not_all_new")
+    else:
+        ch, lv, kind = case.split("_")
+        args = _coefficient_planes(dev, int(ch[2:]), int(lv[2:]),
+                                   kind == "drawn")
+        out = None
+    n0 = coefficients.launches
+    got = coefficients.coefficients(*args)
+    assert coefficients.launches == n0 + 1
+    ref = coefficients.coefficients_plain(*args)
+    names = ("a1", "a2", "d1", "d2", "mc")
+    for name, g, r in zip(names, got, ref):
+        assert g.device.type == "cuda" and g.is_contiguous(), name
+        assert torch.equal(g, r), name
+        if out is not None:
+            assert torch.equal(g, getattr(out, name)), name
