@@ -390,6 +390,19 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
                                       plain, dbg if debug else None)
             in_energy = in_energy * ratio.reshape(batch, nB, 1, B)
 
+    if any_random:
+        with span("sst.plan.positions"):
+            if flags.mapped:
+                # the four vote sets beside G's input_bin
+                pos = torch.stack([pos[:, 0]] + _random_vote_positions(
+                    pos[:, 0], btf1, btf2, longv), 1)
+            else:
+                # per-bin vote positions about the identity map, b less
+                # the drawn factors
+                base = torch.arange(B, dtype=torch.float32, device=dev)
+                pos = torch.stack(_random_vote_positions(base, btf1, btf2,
+                                                         longv), 1)
+
     with span("sst.plan.lookup"):
         if flags.mapped:
             # ---- prediction lookups at the mapped positions (:697-719) ----
@@ -401,9 +414,6 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
             rows_list = ([rows(input_eff[:, :, c]) for c in range(ch)]
                          + [rows(prev_eff[:, :, c]) for c in range(ch)]
                          + [rows(in_energy[:, :, c]) for c in range(ch)])
-            if any_random:
-                pos = torch.stack([pos[:, 0]] + _random_vote_positions(
-                    pos[:, 0], btf1, btf2, longv), 1)
             specs = [(pos[:, 0], 3 * ch)] + [(pos[:, k], ch)
                                               for k in range(1, pos.shape[1])]
             vals, *votes = _lookup(rows_list, specs, pos, plain, batch,
@@ -417,11 +427,7 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
             pi = [input_eff[:, :, c] for c in range(ch)]
             prev_i = [prev_eff[:, :, c] for c in range(ch)]
             if any_random:
-                # per-bin vote positions about the identity map, b less the
-                # drawn factors: four sets over the input's planes (kernel A)
-                base = torch.arange(B, dtype=torch.float32, device=dev)
-                pos = torch.stack(_random_vote_positions(base, btf1, btf2,
-                                                         longv), 1)
+                # four sets over the input's planes (kernel A)
                 votes = _lookup([rows(p) for p in pi],
                                 [(pos[:, k], ch) for k in range(4)], pos,
                                 plain, batch, dbg if debug else None)

@@ -37,7 +37,7 @@ _TAIL = ["sst.plan.lookup", "sst.plan.coefficients"]
 PLAN_PHASES = {
     "stretch1.25": _HEAD + _TAIL,
     "pitch12": _HEAD + _MAPPED + _TAIL,
-    "stretch3": _HEAD + ["sst.plan.draws"] + _TAIL,
+    "stretch3": _HEAD + ["sst.plan.draws", "sst.plan.positions"] + _TAIL,
     "formant": _HEAD + _MAPPED + ["sst.plan.formant"] + _TAIL,
 }
 RENDERS = {
