@@ -14,6 +14,58 @@ from ..utils.profiling import span
 
 f32 = np.float32
 
+# whole clips a pinned staging block of the copy in holds: 4 clips of 10 s
+# stereo float32 at 48 kHz (15.4 MB) staged 32 clips fastest on an H100
+# against 1, 2, 8, 16 and 32 (PERF.md, the entry layer)
+STAGE_CLIPS = 4
+
+
+def clip_chunks(batch: int, per: int):
+    """The copy in's chunks of whole clips, [(start, stop), ...] in order:
+    they cover range(batch) exactly, each at most `per` clips."""
+    return [(a, min(a + per, batch)) for a in range(0, batch, per)]
+
+
+def copy_in(host: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor [batch, ...] of any dtype and strides -> float32 on
+    `device`.  On the card, a pinned input goes straight to one DMA;
+    any other is staged through two pinned blocks a chunk of whole clips
+    at a time (clip_chunks): the CPU's copy_ converts the chunk into a
+    block in one pass while the previous chunk's non-blocking DMA runs,
+    and a block is refilled only once its last DMA's event has completed.
+    On the CPU the same walk runs through pageable blocks."""
+    out = torch.empty(host.shape, dtype=torch.float32, device=device)
+    cuda = out.device.type == "cuda"
+    if cuda and host.is_pinned():
+        return out.copy_(host, non_blocking=True)
+    n = host.shape[0]
+    blocks, sent = [], [None, None]
+    for k, (a, b) in enumerate(clip_chunks(n, STAGE_CLIPS)):
+        j = k % 2
+        if j == len(blocks):
+            blocks.append(torch.empty((min(STAGE_CLIPS, n),) + host.shape[1:],
+                                      dtype=torch.float32, pin_memory=cuda))
+        elif sent[j] is not None:
+            sent[j].synchronize()
+        stage = blocks[j][:b - a]
+        stage.copy_(host[a:b])
+        out[a:b].copy_(stage, non_blocking=cuda)
+        if cuda:
+            sent[j] = torch.cuda.Event()
+            sent[j].record(torch.cuda.current_stream(out.device))
+    return out
+
+
+def copy_out(out: torch.Tensor) -> torch.Tensor:
+    """A render on the card -> the same values in a new pinned host tensor
+    of its own (the caching host allocator hands a block back only once
+    its owner is freed and its copy has completed), final on return."""
+    with span("sst.render.copy_out"):
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        torch.cuda.current_stream(out.device).synchronize()
+    return host
+
 
 class StretchModel(nn.Module):
     """One render shape (config, controls, input and output lengths) with
@@ -62,22 +114,38 @@ class StretchModel(nn.Module):
     def forward(self, audio, seed: int = 0,
                 plain: bool = False) -> torch.Tensor:
         """One clip [ch, in] -> [ch, out]; seed seeds the randomised regime
-        above 2x."""
+        above 2x.  The result lives where `batched` puts it: on a model on
+        the card, host input (numpy, a CPU tensor) gives a pinned CPU
+        tensor and a CUDA tensor gives a CUDA tensor."""
         return self.batched(torch.as_tensor(audio)[None], [seed], plain)[0]
 
     def batched(self, audio, seeds=None, plain: bool = False) -> torch.Tensor:
         """[batch, ch, in] -> [batch, ch, out].  seeds: one integer a clip
         for the randomised regime above 2x, by default 0, 1, ..., batch - 1
         (the JAX package's `batched`).  plain=True runs the plain PyTorch
-        versions of the kernels (for comparisons on the card)."""
-        with span("sst.render.copy_in"):
-            audio = torch.as_tensor(audio, dtype=torch.float32,
-                                    device=self.device)
-        if audio.shape[1:] != (self.cfg.channels, self.in_samples):
+        versions of the kernels (for comparisons on the card).
+
+        The output follows the input's place.  On a model on the card,
+        host input (numpy, or a CPU tensor) is staged to the card through
+        pinned memory (copy_in) and its render comes back as a CPU tensor
+        in pinned memory, its own storage, final when this returns: its
+        `.cpu()` copies nothing and `.numpy()` is a view.  A CUDA tensor's
+        render stays on the card.  A model on the CPU returns a CPU
+        tensor."""
+        shape = tuple(np.shape(audio))
+        if shape[1:] != (self.cfg.channels, self.in_samples):
             raise ValueError(f"expected [batch, {self.cfg.channels}, "
-                             f"{self.in_samples}] audio, got "
-                             f"{tuple(audio.shape)}")
+                             f"{self.in_samples}] audio, got {shape}")
+        host_path = self.device.type == "cuda" and not (
+            isinstance(audio, torch.Tensor) and audio.device.type != "cpu")
+        with span("sst.render.copy_in"):
+            if host_path:
+                audio = copy_in(torch.as_tensor(audio), self.device)
+            else:
+                audio = torch.as_tensor(audio, dtype=torch.float32,
+                                        device=self.device)
         if seeds is not None:
             seeds = [int(s) for s in np.asarray(seeds).reshape(-1)]
-        return engine.render_exact(audio, self.plan, self.controls,
-                                   self.flags, plain, seeds)
+        out = engine.render_exact(audio, self.plan, self.controls,
+                                  self.flags, plain, seeds)
+        return copy_out(out) if host_path else out

@@ -1128,3 +1128,64 @@ def test_coefficients_kernel_matches_plain(dev, case):
         assert torch.equal(g, r), name
         if out is not None:
             assert torch.equal(g, getattr(out, name)), name
+
+
+# the offline render's copies (models/stretch.copy_in, copy_out): clips of
+# 1 s stereo at 48 kHz, two staging blocks and one clip more, so that the
+# walk refills a block
+COPY_RATE = 48000
+COPY_CELLS = {"pitch12": (1.0, dict(semitones=12.0, tonality_hz=8000.0)),
+              "stretch1.25": (1.25, {})}
+
+
+def _copy_model(dev, cell):
+    from signalsmith_stretch_torch.models import stretch
+    tf, kw = COPY_CELLS[cell]
+    model = StretchModel.build(2, COPY_RATE, COPY_RATE,
+                               int(COPY_RATE * tf), device=dev, **kw)
+    batch = 2 * stretch.STAGE_CLIPS + 1
+    clips = chip_smoke.make_corpus(batch, 2, COPY_RATE, COPY_RATE)
+    return model, clips
+
+
+@pytest.mark.parametrize("kind", ["float32", "float64", "strided", "pinned"])
+@pytest.mark.parametrize("cell", sorted(COPY_CELLS))
+def test_host_input_renders_to_pinned_memory(dev, cell, kind):
+    """Host input: a CPU tensor in pinned memory, bit-equal to the render
+    of the same clips as a CUDA tensor, which stays on the card."""
+    model, clips = _copy_model(dev, cell)
+    x = clips.astype(np.float64) if kind == "float64" else clips
+    on_card = model.batched(torch.as_tensor(x, dtype=torch.float32,
+                                            device=dev))
+    assert on_card.device.type == "cuda"
+    if kind == "strided":
+        x = np.repeat(clips, 2, axis=-1)[..., ::2]
+    elif kind == "pinned":
+        x = torch.as_tensor(clips).pin_memory()
+    got = model.batched(x)
+    assert got.device.type == "cpu" and got.is_pinned()
+    assert torch.equal(got, on_card.cpu())
+    one = model(x[3])
+    assert one.device.type == "cpu" and one.is_pinned()
+    assert torch.equal(one, on_card[3].cpu())
+
+
+def test_host_results_keep_their_own_storage(dev):
+    """Two results held across a third call keep their storage and values;
+    the copy out's span counts the host-input calls, never a device
+    input's."""
+    from torch.profiler import ProfilerActivity, profile
+    model, clips = _copy_model(dev, "stretch1.25")
+    first = model.batched(clips)
+    second = model.batched(clips[::-1].copy())
+    kept = first.clone(), second.clone()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        third = model.batched(0.5 * clips)
+        model.batched(torch.as_tensor(clips, device=dev))
+        model.batched(clips)
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    assert names.count("sst.render.copy_out") == 2
+    assert names.count("sst.render.copy_in") == 3
+    assert len({first.data_ptr(), second.data_ptr(), third.data_ptr()}) == 3
+    assert torch.equal(first, kept[0]) and torch.equal(second, kept[1])
+    assert not torch.equal(third, first)
