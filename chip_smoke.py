@@ -546,14 +546,15 @@ def mapped_planner():
     sweep inputs and debug tensors (the plain planner on the spectra of
     one analysis through D): the main path's shapes of A, C and G."""
     import torch
-    from signalsmith_stretch_torch import engine, planner
+    from signalsmith_stretch_torch import engine, ops, planner
     model, clips = _model(MAPPED, BATCH)
     audio = torch.as_tensor(clips, device=DEVICE)
     plan = model.plan
     spectra, prev = engine.analyze_stage(audio, plan)
-    inputs, dbg = planner.plan_spectral(spectra, prev, plan.arrays,
-                                        model.controls, model.flags,
-                                        plan.consts, plain=True, debug=True)
+    with ops.plain():
+        inputs, dbg = planner.plan_spectral(spectra, prev, plan.arrays,
+                                            model.controls, model.flags,
+                                            plan.consts, debug=True)
     torch.cuda.synchronize()
     return model, audio, inputs, dbg
 
@@ -1343,12 +1344,18 @@ def render_vs_plain(model, audio):
     render's own response to a 1-ulp change of its input with band
     energies within 3 dB.  Returns (passed, description)."""
     import torch
-    from signalsmith_stretch_torch import engine
+    from signalsmith_stretch_torch import engine, ops, planner, wavefront
     plan = model.plan
     spectra, prev = engine.analyze_stage(audio, plan)
-    k_specs, p_specs = (engine.spectral_stage(spectra, prev, plan,
-                                              model.controls, model.flags, p)
-                        for p in (False, True))
+
+    def spectral_stage():
+        return wavefront.sweep(planner.plan_spectral(
+            spectra, prev, plan.arrays, model.controls, model.flags,
+            plan.consts), plan.consts.long_vertical_step)
+
+    k_specs = spectral_stage()
+    with ops.plain():
+        p_specs = spectral_stage()
     if not torch.equal(k_specs, p_specs):
         return False, (f"spectral stage through the kernels differs from "
                        f"the plain versions on the same spectra, max abs "
@@ -1473,11 +1480,11 @@ def check_draws(name, plan, B):
     from signalsmith_stretch_torch import planner
     from signalsmith_stretch_torch.config import MAX_CLEAN_STRETCH
     from signalsmith_stretch_torch.ops import draws
+    from signalsmith_stretch_torch.tables import on_device
     dev = torch.device(DEVICE)
-    tf = np.maximum(plan.arrays["time_factor"],
-                    np.float32(1 / MAX_CLEAN_STRETCH)).astype(np.float32)
+    tf = plan.arrays["tf"]
     nB = len(tf)
-    bounds = planner._random_bounds(tf.tobytes(), dev)
+    bounds = on_device(tf, dev, planner.draw_bounds)
     args = (planner._clip_keys(tuple(range(BATCH)), dev), *bounds, B)
     for a in (args, (planner._clip_keys((-1, 2 ** 31), dev), *bounds, B)):
         got = draws.draws_factors(*a)
@@ -1885,7 +1892,7 @@ def check_stream_blocks(cfg, clip):
     first blocks: the output and every carry field bit-equal.  Returns the
     last block's kernel inputs (process_block's dbg)."""
     import torch
-    from signalsmith_stretch_torch import spectral
+    from signalsmith_stretch_torch import ops, spectral
     name, tf, _ = cfg
     eng = _stream_engine(cfg, DEVICE)
     blocks = _record_blocks(eng, clip, tf, STREAM_CHECK_BLOCKS)
@@ -1894,8 +1901,9 @@ def check_stream_blocks(cfg, clip):
         got = spectral.process_block(carry, xs, eng.controls, eng.flags,
                                      eng.consts, dbg=dbg)
         mcs.append(dbg["sweep"].max_ch)
-        ref = spectral.process_block(carry, xs, eng.controls, eng.flags,
-                                     eng.consts, plain=True)
+        with ops.plain():
+            ref = spectral.process_block(carry, xs, eng.controls, eng.flags,
+                                         eng.consts)
         pairs = [(got[1], ref[1])] + list(zip(got[0][:6], ref[0][:6]))
         if not (all(same_bits(a.contiguous(), b.contiguous())
                     if a.dtype == torch.float32 else torch.equal(a, b)
@@ -1969,7 +1977,7 @@ def check_stream_kernels(name, dbg, eng, clip):
     draws at 3x), and D on the block's two frames of each channel.
     Returns {kernel: numbers}."""
     import torch
-    from signalsmith_stretch_torch import prng, spectral, stft
+    from signalsmith_stretch_torch import ops, prng, spectral, stft
     from signalsmith_stretch_torch.ops import (block_sweep, dft, draws,
                                                interp, peaks, scan_ops)
     out = {}
@@ -2050,16 +2058,18 @@ def check_stream_kernels(name, dbg, eng, clip):
             fmap = eng.flags.custom_map
             got = peaks.peaks_positions_custom(energy, sm, tf_d, ltf_d, fmap,
                                                consts)
-            ref = peaks.peaks_positions_custom(energy, sm, tf_d, ltf_d, fmap,
-                                               consts, plain=True)
+            with ops.plain():
+                ref = peaks.peaks_positions_custom(energy, sm, tf_d, ltf_d,
+                                                   fmap, consts)
             cpu = peaks.peaks_positions_custom(
-                energy.cpu(), sm.cpu(), tf_d.cpu(), ltf_d.cpu(), fmap, consts,
-                plain=True)
+                energy.cpu(), sm.cpu(), tf_d.cpu(), ltf_d.cpu(), fmap, consts)
             key = "peaks_split"
             fn = lambda: peaks.peaks_positions_custom(  # noqa: E731
                 energy, sm, tf_d, ltf_d, fmap, consts)
-            plain_fn = lambda: peaks.peaks_positions_custom(  # noqa: E731
-                energy, sm, tf_d, ltf_d, fmap, consts, plain=True)
+            def plain_fn():
+                with ops.plain():
+                    return peaks.peaks_positions_custom(energy, sm, tf_d,
+                                                        ltf_d, fmap, consts)
         if not all(same_bits(g, r) and same_bits(g.cpu(), c)
                    for g, r, c in zip(got, ref, cpu)):
             raise SystemExit(f"{name}: G at one row differs from its plain "

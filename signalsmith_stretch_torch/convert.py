@@ -21,7 +21,7 @@ import torch
 
 from . import schedule as sched_mod
 from .config import StretchConfig
-from .engine import ExactPlan, SilencePlan
+from .engine import ExactPlan, SilencePlan, plan_tables
 from .spectral import (Controls, SpectralCarry, SpectralConsts,
                        SpectralFlags)
 from .stft import StftBasis
@@ -111,6 +111,7 @@ def plan_from_arrays(d: dict) -> ExactPlan:
         sch.blocks = [sched_mod.BlockRecord(int(e), int(p), bool(n), bool(r),
                                             np.float32(tf))
                       for e, p, n, r, tf in zip(*[arrays[k] for k in _ARRAYS])]
+        arrays = plan_tables(arrays, cfg)
     basis = StftBasis(*[_scalar(d["basis." + k]) for k in _BASIS])
     consts = SpectralConsts(*[_scalar(d["consts." + k]) for k in _CONSTS])
     silence = None

@@ -17,11 +17,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import planner, spectral, stft, wavefront
 from . import schedule as sched_mod
-from . import spectral, stft, wavefront
-from .config import NOISE_FLOOR, StretchConfig
+from .config import MAX_CLEAN_STRETCH, NOISE_FLOOR, StretchConfig
+from .ops import dft
+from .tables import on_device
 from .utils.profiling import span
 
+f32 = np.float32
 plans_built = 0       # build_exact_plan calls (utils/profiling's guard)
 
 
@@ -36,7 +39,7 @@ class ExactPlan:
     frame_idx: np.ndarray       # [nBlocks, block] timeline indices
     re_rows: np.ndarray         # indices of blocks needing re-analysis
     re_frame_idx: np.ndarray    # [nRe, block] timeline indices for those
-    arrays: dict                # per-block flag/factor arrays
+    arrays: dict                # per-block arrays and their plan_tables
     silence: "SilencePlan" = None
 
 
@@ -110,6 +113,30 @@ def build_silence_plan(sch: sched_mod.ExactSchedule, basis: stft.StftBasis,
                        pre_spans, pre_weight, pm_spans, pm_weight)
 
 
+def plan_tables(arrays: dict, cfg: StretchConfig) -> dict:
+    """The schedule's arrays and the tables a render reads, derived from
+    them once a plan: the frame starts (the main frames', then the
+    re-analysed ones', int64); each block's input block (src_input, -1
+    before the first new block) as a gather index and mask, the same for
+    prevInput's base; the clamped time factors tf and ltf (float32)."""
+    new, reanalyse = arrays["new_spectrum"], arrays["reanalyse"]
+    ends, block = arrays["analysis_end"], cfg.block_samples
+    idx = np.arange(len(new))
+    src_input = np.maximum.accumulate(np.where(new, idx, -1))
+    m_prev = np.concatenate([[-1], src_input[:-1]])  # last new block < k
+    fresh = new & ~reanalyse
+    tf = np.maximum(arrays["time_factor"], f32(1.0 / MAX_CLEAN_STRETCH))
+    starts = [ends - block, ends[reanalyse] - cfg.interval_samples - block]
+    return {**arrays, "frame_starts": np.concatenate(starts).astype(np.int64),
+            "input_idx": np.maximum(src_input, 0),
+            "input_valid": src_input >= 0,
+            "base_idx": np.where(fresh, np.maximum(m_prev, 0),
+                                 np.maximum(src_input, 0)),
+            "base_keep": np.where(fresh, m_prev >= 0,
+                                  src_input >= 0) | reanalyse,
+            "tf": tf, "ltf": (f32(cfg.long_vertical_step) * tf).astype(f32)}
+
+
 def build_exact_plan(cfg: StretchConfig, in_samples: int,
                      out_samples: int) -> ExactPlan:
     global plans_built
@@ -121,7 +148,7 @@ def build_exact_plan(cfg: StretchConfig, in_samples: int,
         return ExactPlan(cfg, sch, basis, consts, np.zeros(1, np.float32),
                          np.zeros((0, 0), np.int32), np.zeros(0, np.int32),
                          np.zeros((0, 0), np.int32), {})
-    arrays = sched_mod.block_arrays(sch)
+    arrays = plan_tables(sched_mod.block_arrays(sch), cfg)
     block = cfg.block_samples
     ends = arrays["analysis_end"]
     base = np.arange(block, dtype=np.int32)
@@ -149,6 +176,11 @@ def _build_timeline(audio: torch.Tensor, plan: ExactPlan) -> torch.Tensor:
     return torch.cat(parts, -1)
 
 
+def window_index(starts: np.ndarray) -> np.ndarray:
+    """The frame starts as indices into gather_frames' padded windows."""
+    return starts.astype(np.int64) + max(0, -int(starts.min()))
+
+
 def gather_frames(timeline: torch.Tensor, starts: np.ndarray,
                   block: int) -> torch.Tensor:
     """Frame windows: timeline [batch, ch, T] -> [batch, nF, ch, block].
@@ -159,43 +191,28 @@ def gather_frames(timeline: torch.Tensor, starts: np.ndarray,
     front = max(0, -int(starts.min()))
     back = max(0, int(starts.max()) + block - T)
     windows = F.pad(timeline, (front, back)).unfold(-1, block, 1)
-    idx = torch.as_tensor(starts.astype(np.int64) + front,
-                          device=timeline.device)
+    idx = on_device(starts, timeline.device, window_index)
     return windows[:, :, idx].transpose(1, 2)
 
 
-def analyze_stage(audio: torch.Tensor, plan: ExactPlan, plain: bool = False):
+def analyze_stage(audio: torch.Tensor, plan: ExactPlan):
     """Timeline + frames + modified-DFT analysis (kernel D on the card).
     Returns (spectra, prev_spectra), both [batch, nB, ch, B] complex64;
     prev_spectra holds the re-analysis one interval back for the blocks in
-    plan.re_rows, else 0.  plain=True runs the plain analysis (torch.fft)."""
+    plan.re_rows, else 0."""
     timeline = _build_timeline(audio, plan)
-    block = plan.cfg.block_samples
     nB = plan.frame_idx.shape[0]
-    if not len(plan.re_rows):
-        spectra = stft.analyze(gather_frames(timeline, plan.frame_idx[:, 0],
-                                             block), plan.basis, plain)
-        return spectra, torch.zeros_like(spectra)
     # one window gather + one batched DFT for main and re-analysis frames
-    starts = np.concatenate([plan.frame_idx[:, 0], plan.re_frame_idx[:, 0]])
-    both = stft.analyze(gather_frames(timeline, starts, block), plan.basis,
-                        plain)
+    both = dft.analyze(gather_frames(timeline, plan.arrays["frame_starts"],
+                                     plan.cfg.block_samples), plan.basis)
+    if not len(plan.re_rows):
+        return both, torch.zeros_like(both)
     spectra = both[:, :nB]
     if len(plan.re_rows) == nB:     # fixed-rate renders re-analyse every block
         return spectra, both[:, nB:]
     prev = torch.zeros_like(spectra)
-    prev[:, torch.as_tensor(plan.re_rows, device=audio.device)] = both[:, nB:]
+    prev[:, on_device(plan.re_rows, audio.device)] = both[:, nB:]
     return spectra, prev
-
-
-def spectral_stage(spectra, prev_spectra, plan: ExactPlan,
-                   controls: spectral.Controls, flags: spectral.SpectralFlags,
-                   plain: bool = False, seeds=None):
-    """The spectral processor over all blocks: [batch, ch, nB, B] complex64.
-    seeds: one integer a clip for the randomised regime above 2x."""
-    return wavefront.spectral_all_blocks(spectra, prev_spectra, plan.arrays,
-                                         controls, flags, plan.consts, plain,
-                                         seeds)
 
 
 def _overlap_add(blocks_t: torch.Tensor, out_pos: np.ndarray,
@@ -235,7 +252,7 @@ def _bypass_tail(blocks_t, spans, weight, w0: int, T: int, L: int, preroll):
     lo, hi = max(w0, L), min(w0 + 2 * T, 2 * L)
     if lo < hi:   # -preroll[L-1-(j-L)] at ring position j
         buf[..., lo - w0:hi - w0] -= preroll[..., 2 * L - hi:2 * L - lo].flip(-1)
-    t = buf / torch.as_tensor(weight, device=buf.device)
+    t = buf / on_device(weight, buf.device)
     return t[..., :T] - t[..., T:].flip(-1)
 
 
@@ -250,10 +267,7 @@ def synthesis_stage(out_specs: torch.Tensor, plan: ExactPlan,
     blocks_t = stft.synthesize(out_specs, plan.basis)   # [batch, ch, nB, block]
     ring = _overlap_add(blocks_t, plan.arrays["out_pos"], sch.ring_len,
                         cfg.block_samples, cfg.interval_samples)
-    with span("sst.synthesis.wait"):
-        # a copy from pageable memory waits for the work queued before it
-        # (the plan, the sweep and the inverse FFT)
-        w = torch.as_tensor(plan.weight, device=ring.device)
+    w = on_device(plan.weight, ring.device)
     L = sch.preroll_len
     preroll = ring[..., :L] / w[:L]
     # outputSeek: negate + reverse the pre-roll into the ring (:198-203)
@@ -286,8 +300,8 @@ def synthesis_stage(out_specs: torch.Tensor, plan: ExactPlan,
         else:   # only reachable when the pre-roll was silent too (fp, not fa)
             flush_b = main_silent & pre_silent & fp
         if sil.pass_idx is not None:
-            passthrough = audio[..., torch.as_tensor(sil.pass_idx.astype(np.int64),
-                                                     device=audio.device)]
+            passthrough = audio[..., on_device(sil.pass_idx, audio.device,
+                                               np.asarray, np.int64)]
         else:
             passthrough = torch.zeros_like(main)
         main = torch.where(main_b, passthrough, main)
@@ -306,11 +320,11 @@ def synthesis_stage(out_specs: torch.Tensor, plan: ExactPlan,
 
 def render_exact(audio: torch.Tensor, plan: ExactPlan,
                  controls: spectral.Controls, flags: spectral.SpectralFlags,
-                 plain: bool = False, seeds=None,
-                 silence: bool = True) -> torch.Tensor:
+                 seeds=None, silence: bool = True) -> torch.Tensor:
     """audio [batch, ch, in_samples] float32 -> [batch, ch, out_samples].
-    plain=True runs the plain PyTorch versions of the kernels.  seeds: one
-    integer a clip for the randomised regime above 2x (default 0, 1, ...,
+    The kernels run on a CUDA tensor, their plain versions on a CPU one or
+    inside ops.plain().  seeds: one integer a clip for the randomised
+    regime above 2x (default 0, 1, ...,
     as the JAX package's batched render).  silence=False turns the silence
     bypass off (the JAX package's SST_SILENCE=0): every clip takes the
     normal path, which leaves a loud clip's render as it was."""
@@ -318,9 +332,14 @@ def render_exact(audio: torch.Tensor, plan: ExactPlan,
         return audio.new_zeros(audio.shape[:2] + (plan.sched.out_samples,))
     with span("sst.render"):
         with span("sst.render.analysis"):
-            spectra, prev_spectra = analyze_stage(audio, plan, plain)
-        out_specs = spectral_stage(spectra, prev_spectra, plan, controls,
-                                   flags, plain, seeds)
+            spectra, prev_spectra = analyze_stage(audio, plan)
+        with span("sst.render.plan"):
+            inputs = planner.plan_spectral(spectra, prev_spectra, plan.arrays,
+                                           controls, flags, plan.consts,
+                                           seeds=seeds)
+        with span("sst.render.sweep"):
+            out_specs = wavefront.sweep(inputs,
+                                        plan.consts.long_vertical_step)
         with span("sst.render.synthesis"):
             return synthesis_stage(out_specs, plan,
                                    audio=audio if silence else None)

@@ -7,7 +7,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import engine
+from .. import engine, ops, tables
 from ..config import StretchConfig, device_for
 from ..spectral import Controls, SpectralFlags
 from ..utils.profiling import span
@@ -82,6 +82,9 @@ class StretchModel(nn.Module):
         self.in_samples, self.out_samples = in_samples, out_samples
         self.plan = plan or engine.build_exact_plan(cfg, in_samples,
                                                     out_samples)
+        # a table first made inside a render would take a block of the
+        # caching allocator that a later render's scratch needs
+        tables.prepare(self.plan, controls, flags, self.device)
 
     @classmethod
     def build(cls, channels: int, sample_rate: float, in_samples: int,
@@ -123,7 +126,7 @@ class StretchModel(nn.Module):
         """[batch, ch, in] -> [batch, ch, out].  seeds: one integer a clip
         for the randomised regime above 2x, by default 0, 1, ..., batch - 1
         (the JAX package's `batched`).  plain=True runs the plain PyTorch
-        versions of the kernels (for comparisons on the card).
+        versions of the kernels (ops.plain(), for comparisons on the card).
 
         The output follows the input's place.  On a model on the card,
         host input (numpy, or a CPU tensor) is staged to the card through
@@ -146,6 +149,7 @@ class StretchModel(nn.Module):
                                         device=self.device)
         if seeds is not None:
             seeds = [int(s) for s in np.asarray(seeds).reshape(-1)]
-        out = engine.render_exact(audio, self.plan, self.controls,
-                                  self.flags, plain, seeds)
+        with ops.plain(plain):
+            out = engine.render_exact(audio, self.plan, self.controls,
+                                      self.flags, seeds)
         return copy_out(out) if host_path else out

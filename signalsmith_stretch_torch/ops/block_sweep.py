@@ -17,10 +17,10 @@ xr*yi), and each squared magnitude r*r + i*i into fma(r, r, i*i)
 compiled `_sweep_scan`).  The kernel rounds at the same places
 (`__fmaf_rn`); everything else is one IEEE float32 operation each.
 
-On a CPU tensor the wrapper runs `block_sweep_plain`; on a CUDA tensor it
-launches the kernel or raises.  The plain version is a loop over bins,
-in numpy float32 on a CPU copy of its inputs (for a CUDA tensor too: the
-card would run each of its small steps as a kernel launch).
+On a CPU tensor, or inside ops.plain(), the wrapper runs `block_sweep_plain`;
+on a CUDA tensor it launches the kernel or raises.  The plain version is a
+loop over bins, in numpy float32 on a CPU copy of its inputs (for a CUDA
+tensor too: the card would run each of its small steps as a kernel launch).
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, runs_plain
 
 f32 = np.float32
 launches = 0          # kernel launches of block_sweep
@@ -234,7 +234,7 @@ def block_sweep(x: BlockSweepInputs, longv: int) -> torch.Tensor:
     complex64, one launch of one CTA (the chain warp and three helper
     warps)."""
     global launches
-    if x.pe.device.type == "cpu":
+    if runs_plain(x.pe):
         return block_sweep_plain(x, longv)
     _check(x, longv)
     out = _launch("block_sweep", x, longv)

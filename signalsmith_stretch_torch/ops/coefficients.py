@@ -5,31 +5,24 @@ The last phase of `planner.plan_spectral` (signalsmith-stretch.h:722-803;
 the JAX package's planner.py:562-690): the chain coefficient c1 of every
 channel, the loudest channel mc, and the four vote coefficients a1, a2, d1,
 d2 that the diagonal sweep reads.  `coefficients` launches J once on a CUDA
-tensor (or raises); on a CPU tensor it runs `coefficients_plain`, the same
-arithmetic as PyTorch operations.  Every complex product is written as
-separate float32 products and sums, which is how the CPU rounds torch's
-complex multiply and how J rounds (built with --fmad=false): the card's own
-complex multiply may contract into fused multiply-adds.
+tensor (or raises); on a CPU tensor, or inside ops.plain(), it runs
+`coefficients_plain`, the same arithmetic as PyTorch operations.  Every
+complex product is written as separate float32 products and sums, which is
+how the CPU rounds torch's complex multiply and how J rounds (built with
+--fmad=false): the card's own complex multiply may contract into fused
+multiply-adds.
 """
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..config import NOISE_FLOOR
-from . import _build
+from ..tables import on_device
+from . import _build, runs_plain
 
 launches = 0          # kernel launches of coefficients
-
-
-@functools.lru_cache(maxsize=8)
-def fresh_blocks(key: bytes, device: torch.device) -> torch.Tensor:
-    """The schedule's new_spectrum flags (their bytes) as [nB] bool on
-    `device`, copied once per (plan, device)."""
-    return torch.as_tensor(np.frombuffer(key, np.bool_).copy(), device=device)
 
 
 def _cmul(a, b):
@@ -71,7 +64,7 @@ def coefficients_plain(pi, prev_i, pe, votes, rotor, new, longv: int):
         rotor_eff = rotor
     else:
         rotor_eff = torch.where(
-            fresh_blocks(np.asarray(new, np.bool_).tobytes(), dev)[:, None],
+            on_device(np.asarray(new, np.bool_), dev)[:, None],
             rotor, torch.ones((), dtype=rotor.dtype, device=dev))  # [nB, B]
     c1 = []
     for c in range(ch):
@@ -114,7 +107,7 @@ def coefficients(pi, prev_i, pe, votes, rotor, new, longv: int):
     flags (numpy); longv: the long vertical step.  Returns (a1, a2, d1,
     d2) complex64 and mc int32, each [batch, nB, B] and contiguous."""
     global launches
-    if rotor.device.type == "cpu":
+    if runs_plain(rotor):
         return coefficients_plain(pi, prev_i, pe, votes, rotor, new, longv)
     ch = len(pi)
     if ch < 1 or len(prev_i) != ch or len(pe) != ch or len(votes) not in (
@@ -149,7 +142,7 @@ def coefficients(pi, prev_i, pe, votes, rotor, new, longv: int):
                          dtype=torch.int64)
     table = table.pin_memory().to(dev, non_blocking=True)
     new = np.asarray(new, np.bool_)
-    fresh = None if new.all() else fresh_blocks(new.tobytes(), dev).data_ptr()
+    fresh = None if new.all() else on_device(new, dev).data_ptr()
     # mc before the four planes: in this order a render's later calls find
     # every block in the caching allocator's pool (cli_dev's allocation
     # guard at 1.25x +3 semitones; the other order makes one segment more

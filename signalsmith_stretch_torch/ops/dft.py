@@ -5,8 +5,9 @@ pallas_fwd): the modified real DFT S_b = sum_n w[n] x[n] e^{-2πi n (b+0.5)/N},
 b < N/2, of windowed frames, which the kernel computes as one complex FFT of
 half length M = N/2 per frame (pack the sample pairs, pre-twist, a mixed-radix
 Stockham FFT in shared memory, post-combine bands b and M-1-b).  On a CPU
-tensor it runs the plain version, `stft.analyze_plain` (torch.fft); on a
-CUDA tensor it launches the kernel or raises.  The kernel is held to the
+tensor, or inside ops.plain(), it runs the plain version,
+`stft.analyze_plain` (torch.fft); on a CUDA tensor it launches the kernel
+or raises.  The kernel is held to the
 plain version (cuFFT on the card) at 3e-6 of the spectrum's peak magnitude,
 not bit for bit.
 """
@@ -17,8 +18,9 @@ import functools
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, runs_plain
 from .. import stft
+from ..tables import on_device
 
 launches = 0          # kernel launches of analyze
 # the radices of the FFT passes for each log2 N, in order: the plan the
@@ -57,24 +59,25 @@ def tables(fft_samples: int):
     return pre, post, np.concatenate(parts)
 
 
-@functools.lru_cache(maxsize=8)
-def _consts(window: bytes, fft_samples: int, device: torch.device):
-    """The window padded with zeros to N samples and the tables on
-    `device`.  Built once per (window, fft size, device)."""
+def _padded(window: np.ndarray, fft_samples: int) -> np.ndarray:
+    """The window padded with zeros to N = fft_samples samples."""
     w = np.zeros(fft_samples, np.float32)
-    win = np.frombuffer(window, np.float32)
-    w[:win.size] = win
+    w[:window.size] = window
+    return w
 
-    def dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
-    return (dev(w),) + tuple(dev(t) for t in tables(fft_samples))
+def consts(basis: "stft.StftBasis", device):
+    """The padded window and the tables on `device`, made once per (basis,
+    device) and fft size (on_device)."""
+    N = basis.fft_samples
+    return ((on_device(basis.window, device, _padded, N),)
+            + tuple(on_device(t, device) for t in tables(N)))
 
 
 def analyze(frames: torch.Tensor, basis: "stft.StftBasis") -> torch.Tensor:
     """Kernel wrapper: frames [..., block] f32 -> [..., bands] complex64."""
     global launches
-    if frames.device.type == "cpu":
+    if runs_plain(frames):
         return stft.analyze_plain(frames, basis)
     N, block = basis.fft_samples, basis.block_samples
     log2n = N.bit_length() - 1
@@ -86,9 +89,7 @@ def analyze(frames: torch.Tensor, basis: "stft.StftBasis") -> torch.Tensor:
                         f"got {frames.dtype} {tuple(frames.shape)}")
     lead = frames.shape[:-1]
     x = frames.reshape(-1, block).contiguous()
-    w, pre, post, tw = _consts(
-        np.ascontiguousarray(basis.window, np.float32).tobytes(), N,
-        x.device)
+    w, pre, post, tw = consts(basis, x.device)
     _build.require_cuda(x, w, pre, post, tw)
     out = torch.empty((x.shape[0], basis.bands), dtype=torch.complex64,
                       device=x.device)

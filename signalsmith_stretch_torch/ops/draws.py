@@ -14,17 +14,17 @@ Above 2x the reference draws a random time factor for every bin
 
 Both are bit-equal to their plain versions, `draws_factors_plain` and
 `draws_block_plain`: `prng.uniform` (bit-equal to JAX's) and the selects.
-On a CPU tensor (or device) a wrapper runs the plain version; on a CUDA
-one it launches the kernel or raises.  A user's RandomEngine
-(`SpectralFlags.random_engine`) does not come here: the callers run it
-as they always did.
+On a CPU tensor (or device), or inside ops.plain(), a wrapper runs the
+plain version; on a CUDA one it launches the kernel or raises.  A user's
+RandomEngine (`SpectralFlags.random_engine`) does not come here: the
+callers run it as they always did.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import prng
-from . import _build
+from . import _build, runs_plain
 
 launches = 0          # kernel launches of draws_factors and draws_block
 
@@ -60,7 +60,7 @@ def draws_factors(keys: torch.Tensor, tf: torch.Tensor, lo_d: torch.Tensor,
     the counts blk*B + b, btf2 from nB*B + blk*B + b, tf in the blocks
     that do not draw."""
     global launches
-    if tf.device.type == "cpu":
+    if runs_plain(tf):
         return draws_factors_plain(keys, tf, lo_d, random_tf, B)
     _build.require_cuda(keys, tf, lo_d, random_tf)
     nB = tf.shape[0]
@@ -98,7 +98,7 @@ def draws_block(key: tuple, lo, hi, B: int, device):
     float32 host numbers.  Returns [2, B] on `device`."""
     global launches
     device = torch.device(device)
-    if device.type == "cpu":
+    if runs_plain(device):
         return draws_block_plain(key, lo, hi, B, device)
     if device.type != "cuda":
         raise ValueError(f"draws_block: a CUDA device expected, got {device}")

@@ -2,23 +2,24 @@
 
 `interp_multi` is the port of the TPU kernel
 signalsmith_stretch_tpu/ops/pallas/interp.py:interp_multi: several position
-sets over one stack of planes, each set reading the first `nsel` planes as a
-lerp or as raw (lo, hi) taps, zero outside [0, W0).  On a CPU tensor it runs
-the plain version (`_interp_gather` per plane); on a CUDA tensor it launches
-the kernel or raises.  `pack` and `unpack` lay complex and real rows out
-as planes the way the JAX package's windowed interpolator does.
-`_interp_shift_static` is the gather-free form for positions b - shift[k]
-with host-known shifts (the unmapped planner's votes).
+sets over one stack of planes, each set reading the first `nsel` planes as
+a lerp or as raw (lo, hi) taps, zero outside [0, W0).  On a CPU tensor, or
+inside ops.plain(), it runs the plain version (`_interp_gather` per plane);
+on a CUDA tensor it launches the kernel or raises.  `pack` and `unpack` lay
+complex and real rows out as planes the way the JAX package's windowed
+interpolator does.  `_interp_shift_static` is the gather-free form for
+positions b - shift[k] with host-known shifts (the unmapped planner's
+votes).
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
-from . import _build
+from ..tables import on_device
+from . import _build, runs_plain
 
 launches = 0          # kernel launches of interp_multi
 MAX_SETS = 8          # position sets one launch takes (csrc/interp.cu)
@@ -75,7 +76,7 @@ def interp_multi(planes: torch.Tensor, pos_sets, pos=None):
     tensor whose slice pos[:, k] is set k's (kernel G writes them so): the
     kernel reads it as it is, with no stack."""
     global launches
-    if planes.device.type == "cpu":
+    if runs_plain(planes):
         return interp_multi_plain(planes, pos_sets)
     if not 0 < len(pos_sets) <= MAX_SETS:
         raise ValueError(f"interp_multi: 1..{MAX_SETS} position sets expected")
@@ -155,23 +156,21 @@ def unpack(results, specs, kinds):
     return outs
 
 
-@functools.lru_cache(maxsize=8)
-def _shift_table(key: bytes, B: int, device: torch.device):
-    """The static tap choice of `_interp_shift_static` for one float32 shift
-    vector (its bytes): the distinct tap shifts, a bin mask on `device` for
-    each shift after the first, and the fractions on `device`.  A plan's
-    time factors are the same for every render, so the numpy work (tens of
-    ms at 48 kHz) and the copies to the card are paid once."""
-    shift_np = np.frombuffer(key, np.float32)
+def shift_taps(shift: np.ndarray, B: int):
+    """The static tap choice of `_interp_shift_static` for one float32
+    shift vector: the distinct tap shifts, a bin mask for each shift after
+    the first, and the fractions.  A plan's time factors are the same for
+    every render, so this numpy work (tens of ms at 48 kHz) is done once
+    (on_device)."""
     b = np.arange(B, dtype=np.float32)
-    p = (b[None, :] - shift_np[:, None]).astype(np.float32)
+    shift = np.asarray(shift, np.float32)
+    p = (b[None, :] - shift[:, None]).astype(np.float32)
     li = np.floor(p)
     frac = (p - li).astype(np.float32)
     s_lo = np.arange(B, dtype=np.int64)[None, :] - li.astype(np.int64)
     assert (s_lo >= 1).all(), "static shift interp expects shift >= 0.5"
     svals = [int(s) for s in np.unique(s_lo)]
-    masks = [torch.as_tensor(s_lo == s, device=device) for s in svals[1:]]
-    return svals, masks, torch.as_tensor(frac, device=device)
+    return svals, tuple(s_lo == s for s in svals[1:]), frac
 
 
 def _interp_shift_static(rows: torch.Tensor, shift_np: np.ndarray):
@@ -182,8 +181,7 @@ def _interp_shift_static(rows: torch.Tensor, shift_np: np.ndarray):
     same IEEE float32 ops, and the device work is a select/lerp over a few
     statically shifted row views (one per distinct tap shift)."""
     B = rows.shape[-1]
-    svals, masks, frac = _shift_table(
-        np.ascontiguousarray(shift_np, np.float32).tobytes(), B, rows.device)
+    svals, masks, frac = on_device(shift_np, rows.device, shift_taps, B)
 
     views = {}
 

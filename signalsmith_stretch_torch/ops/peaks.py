@@ -9,9 +9,9 @@ bin-ascending (the reference's `+=` order), the peaks through the frequency
 map (one set of controls, or one for each block under automation), and per
 bin the input bin, the input bin less the block's time factor
 tf and less its long step's ltf (the three position sets of kernel A's one
-call), and the gradient of the output map.  On a CPU tensor it runs the
-plain version (`peaks_positions_plain`); on a CUDA tensor it launches the
-kernel or raises.
+call), and the gradient of the output map.  On a CPU tensor, or inside
+ops.plain(), it runs the plain version (`peaks_positions_plain`); on a
+CUDA tensor it launches the kernel or raises.
 
 A custom frequency map is a Python callable, which cannot run inside the
 kernel: `peaks_positions_custom` splits G around it into two entries of
@@ -28,7 +28,7 @@ import functools
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, runs_plain
 from .. import spectral
 
 launches = 0          # kernel launches of peaks_positions
@@ -143,7 +143,7 @@ def peaks_positions(energy: torch.Tensor, smoothed: torch.Tensor,
     less tf and ltf of the row's block.  Controls are scalars or per-block
     [nB] arrays (automation); the kernel reads row r's block r % nB."""
     global launches
-    if energy.device.type == "cpu":
+    if runs_plain(energy):
         return peaks_positions_plain(energy, smoothed, tf, ltf, controls,
                                      consts)
     _check(energy, smoothed, tf, ltf, controls, consts)
@@ -214,7 +214,7 @@ def peak_runs(energy: torch.Tensor, smoothed: torch.Tensor,
     bin-ascending) and its frequency (avg + 0.5) / N; the later slots hold
     0.  One launch; no map, no histogram."""
     global runs_launches
-    if energy.device.type == "cpu":
+    if runs_plain(energy):
         return peak_runs_plain(energy, smoothed, consts)
     _check_rows("peak_runs", energy, smoothed, consts)
     out = _launch_runs("peaks_runs", energy, smoothed, consts)
@@ -281,7 +281,7 @@ def output_positions(peak_in: torch.Tensor, mapped: torch.Tensor,
     - 0.5; only the slots below n_peaks[r] are read, so the later ones may
     hold anything, NaN too.  One launch."""
     global out_launches
-    if peak_in.device.type == "cpu":
+    if runs_plain(peak_in):
         return output_positions_plain(peak_in, mapped, n_peaks, tf, ltf, B,
                                       consts)
     _check_out(peak_in, mapped, n_peaks, tf, ltf, B, consts)
@@ -293,18 +293,15 @@ def output_positions(peak_in: torch.Tensor, mapped: torch.Tensor,
 
 def peaks_positions_custom(energy: torch.Tensor, smoothed: torch.Tensor,
                            tf: torch.Tensor, ltf: torch.Tensor,
-                           custom_map, consts: spectral.SpectralConsts,
-                           plain: bool = False):
+                           custom_map, consts: spectral.SpectralConsts):
     """peaks_positions under a custom frequency map: G's runs entry, the
     callable on every slot of avg_freq [R, B // 2 + 2] on the card (float32
     in and out, elementwise: spectral.custom_map_freq holds it to that),
-    then G's out entry.  plain=True takes both entries' plain versions on
-    any device."""
-    runs = peak_runs_plain if plain else peak_runs
-    out = output_positions_plain if plain else output_positions
-    peak_in, avg_freq, n_peaks = runs(energy, smoothed, consts)
+    then G's out entry (each entry's plain version where it runs plain)."""
+    peak_in, avg_freq, n_peaks = peak_runs(energy, smoothed, consts)
     mapped = spectral.custom_map_freq(custom_map, avg_freq)
-    return out(peak_in, mapped, n_peaks, tf, ltf, energy.shape[1], consts)
+    return output_positions(peak_in, mapped, n_peaks, tf, ltf,
+                            energy.shape[1], consts)
 
 
 def split_occupancy(B: int) -> dict:

@@ -14,9 +14,9 @@ previous pass's last value and runs over the previous pass's output, as the
 planner's smoothing and envelope do.  Their kernel (csrc/chain.cuh) streams
 tiles of 32 rows x CHAIN_TILE bins through a ring of shared-memory slots;
 the order of computes, loads and stores is the walk of `chain_walk`, which
-the kernel follows step by step from a table.  On a CPU tensor the wrappers
-run the plain PyTorch loops; on a CUDA tensor they launch the kernel or
-raise.
+the kernel follows step by step from a table.  On a CPU tensor, or inside
+ops.plain(), the wrappers run the plain PyTorch loops; on a CUDA tensor
+they launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import functools
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, runs_plain
 from .. import spectral
 
 launches = 0          # kernel launches of iir_chain and its one-pass forms (C)
@@ -169,7 +169,7 @@ def iir_chain(x: torch.Tensor, init: torch.Tensor, slew: float, directions):
     launch."""
     global launches
     directions = tuple(bool(d) for d in directions)
-    if x.device.type == "cpu":
+    if runs_plain(x):
         return iir_chain_plain(x, init, slew, directions)
     if not directions:
         raise ValueError("iir_chain: no passes")
@@ -236,7 +236,7 @@ def decay_chain(x: torch.Tensor, init: torch.Tensor, passes):
     two distinct coefficient tensors."""
     global decay_launches
     passes = list(passes)
-    if x.device.type == "cpu":
+    if runs_plain(x):
         return decay_chain_plain(x, init, passes)
     if not passes:
         raise ValueError("decay_chain: no passes")
@@ -275,7 +275,7 @@ def top3_local_maxima(metric: torch.Tensor):
     """Kernel wrapper (F): metric [R, B] f32 -> (i0, v0, i1, v1, i2, v2),
     each [R], indices int32 and values f32."""
     global top3_launches
-    if metric.device.type == "cpu":
+    if runs_plain(metric):
         return spectral._top3_local_maxima(metric)
     _build.require_cuda(metric)
     if metric.dtype != torch.float32 or metric.dim() != 2:

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from . import prng, spectral
 from .config import MAX_CLEAN_STRETCH
 from .ops import coefficients, draws, interp, peaks, scan_ops
+from .tables import on_device
 from .utils.profiling import span
 
 f32 = np.float32
@@ -99,27 +100,16 @@ def _formant_targets_cached(key: tuple, compensation: bool, B: int, N: int,
                                         tb - floor_band, target < 0))
 
 
-@functools.lru_cache(maxsize=8)
-def _vote_shifts(tf_key: bytes, ltf_key: bytes, device: torch.device):
-    """The vote positions' per-block shifts tf and ltf ([nB] float32, given
-    as their bytes) on `device`, copied once per (plan, device)."""
-    return tuple(torch.as_tensor(np.frombuffer(k, np.float32).copy(),
-                                 device=device) for k in (tf_key, ltf_key))
-
-
-@functools.lru_cache(maxsize=8)
-def _random_bounds(tf_key: bytes, device: torch.device):
+def draw_bounds(tf: np.ndarray):
     """Above 2x (:747-757): the draws' bounds tf and lo_d = 4 * random_tf
     - tf as [nB] float32, and the blocks whose binTimeFactor is drawn
     (random_tf = tf > 2, [nB] bool), JAX's expressions (planner.py:
-    483-488), in draws.draws_factors' order, on `device` once per (plan,
-    device)."""
-    tf = np.frombuffer(tf_key, np.float32)
+    483-488), in draws.draws_factors' order."""
+    tf = np.asarray(tf, f32)
     random_tf = tf > f32(MAX_CLEAN_STRETCH)
     lo_d = (f32(MAX_CLEAN_STRETCH) * 2 * random_tf.astype(f32) - tf).astype(
         f32)
-    return tuple(torch.as_tensor(a, device=device)
-                 for a in (tf.copy(), lo_d, random_tf))
+    return tf, lo_d, random_tf
 
 
 @functools.lru_cache(maxsize=8)
@@ -131,19 +121,17 @@ def _clip_keys(seeds: tuple, device: torch.device) -> torch.Tensor:
 
 
 def _random_time_factors(tf: np.ndarray, seeds, B: int,
-                         flags: spectral.SpectralFlags, device,
-                         plain: bool = False):
+                         flags: spectral.SpectralFlags, device):
     """The per-bin time factors of the randomised regime, btf1 and btf2
     [batch, nB, B] float32: for each clip, draws (2, nB, B) uniform in
     [lo_d, tf) from prng.key(seed) in the blocks above 2x, tf elsewhere.
-    On the card that is one launch of kernel I (ops/draws.draws_factors;
-    its plain version, prng.uniform and the selects, with plain=True).  A
-    flags.random_engine takes the draws' place, a call a clip."""
-    tf_t, lo_d, random_tf = _random_bounds(tf.astype(f32).tobytes(), device)
+    On the card that is one launch of kernel I (ops/draws.draws_factors).
+    A flags.random_engine takes the draws' place, a call a clip."""
+    tf_t, lo_d, random_tf = on_device(tf, device, draw_bounds)
     if flags.random_engine is None:
-        factors = draws.draws_factors_plain if plain else draws.draws_factors
-        return factors(_clip_keys(tuple(int(s) for s in seeds), device),
-                       tf_t, lo_d, random_tf, B)
+        return draws.draws_factors(
+            _clip_keys(tuple(int(s) for s in seeds), device), tf_t, lo_d,
+            random_tf, B)
     nB = len(tf)
     drawn = torch.stack([
         spectral.draw_uniform(flags, prng.key(seed), (2, nB, B),
@@ -152,10 +140,16 @@ def _random_time_factors(tf: np.ndarray, seeds, B: int,
     return draws.select_blocks(drawn, random_tf, tf_t)
 
 
+def base_bands(base, N: int):
+    """Formant bases (one, or [nB] under automation): the blocks that give
+    one, and each as a band, base * N - 0.5 in float32."""
+    base = np.asarray(base, f32)
+    return base > 0, (base * f32(N) - f32(0.5)).astype(f32)
+
+
 def _formant_ratio(metric: torch.Tensor, batch: int,
                    controls: spectral.Controls, flags: spectral.SpectralFlags,
-                   consts: spectral.SpectralConsts, plain: bool, dbg,
-                   estimate=None):
+                   consts: spectral.SpectralConsts, dbg, estimate=None):
     """The formant envelope ratio (:970-1036): metric [R, B] (the
     cross-channel energy, rows block-major per clip) -> (ratio [R, B],
     (freqEstimateWeighted, freqEstimateWeight) after each clip's last
@@ -169,51 +163,48 @@ def _formant_ratio(metric: torch.Tensor, batch: int,
     def zeros(n):
         return torch.zeros(n, dtype=torch.float32, device=dev)
 
-    base = np.asarray(controls.formant_base_freq, f32)
-    base_band = (base * f32(consts.fft_samples) - f32(0.5)).astype(f32)
+    base = controls.formant_base_freq
     if flags.formant_auto:
         # no base frequency given (in some block): pitch estimate
         # (:927-968), the top-3 scan (kernel F), the harmonic heuristic and
         # the freqEstimateWeighted chains over blocks (C): the weighted
         # estimates and the weights of every clip, stacked as independent
         # rows of one forward pass
-        top3 = (spectral._top3_local_maxima if plain
-                else scan_ops.top3_local_maxima)
-        iir = scan_ops.iir_chain_plain if plain else scan_ops.iir_chain
-        pe_est, weight = spectral._peak_estimate(*top3(metric))
+        pe_est, weight = spectral._peak_estimate(
+            *scan_ops.top3_local_maxima(metric))
         rows = torch.cat([pe_est.to(torch.float32) * weight, weight])
         init = zeros(2 * batch) if estimate is None else torch.cat(estimate)
-        chains, final = iir(rows.reshape(2 * batch, nB), init, 0.25,
-                            (False,))
+        chains, final = scan_ops.iir_chain(rows.reshape(2 * batch, nB), init,
+                                           0.25, (False,))
         few, fw = chains[:batch], chains[batch:]
         state = (final[:batch], final[batch:])
         if dbg is not None:
             dbg.update(freq_estimate_weighted=few, freq_weight=fw)
         freq_estimate = (few / (fw + float(f32(1e-30)))).reshape(R)
-        if controls.automated and (base > 0).any():
+        if controls.automated and (np.asarray(base) > 0).any():
             # the blocks whose automation gives a base take it (JAX
             # planner.py:395-399)
-            use = torch.as_tensor(np.tile(base > 0, batch), device=dev)
-            given = torch.as_tensor(np.tile(base_band, batch), device=dev)
-            freq_estimate = torch.where(use, given, freq_estimate)
+            use, given = on_device(base, dev, base_bands, consts.fft_samples)
+            freq_estimate = torch.where(use.repeat(batch), given.repeat(batch),
+                                        freq_estimate)
     elif controls.automated:
         state = None
-        freq_estimate = torch.as_tensor(np.tile(base_band, batch), device=dev)
+        freq_estimate = on_device(base, dev, base_bands,
+                                  consts.fft_samples)[1].repeat(batch)
     else:
         state = None
-        freq_estimate = torch.full((R,), float(base_band),
-                                   dtype=torch.float32, device=dev)
+        freq_estimate = torch.full((R,), float(base_bands(
+            base, consts.fft_samples)[1]), dtype=torch.float32, device=dev)
 
     # envelope: two max steps with the decay, two min steps with its
     # inverse, each a backward then a forward pass, each pass starting from
     # the previous one's last value: eight passes in one launch (E)
     decay = 1 - 1 / (freq_estimate * 0.5 + 1)
     inv_decay = 1 / decay
-    run = scan_ops.decay_chain_plain if plain else scan_ops.decay_chain
     passes = [(coef, is_min, backward)
               for coef, is_min in ((decay, False), (inv_decay, True))
               for _ in range(2) for backward in (True, False)]
-    env, _ = run(metric, zeros(R), passes)
+    env, _ = scan_ops.decay_chain(metric, zeros(R), passes)
 
     lo_i, hi_i, frac, below = _formant_targets(
         controls, flags.formant_compensation, B, consts.fft_samples, dev,
@@ -248,16 +239,13 @@ def _random_vote_positions(base, btf1, btf2, longv: int):
             coefficients.shift_up(base, longv) - float(longv) * btf2]
 
 
-def _lookup(rows_list, specs, pos, plain: bool, batch: int, dbg):
+def _lookup(rows_list, specs, pos, batch: int, dbg):
     """One multi-set interpolation (kernel A) of rows_list at the position
     sets of specs, (pos [R, B], rows read), whose positions are the slices
     of the stacked pos [R, sets, B]: per set the looked-up rows as [batch,
     nB, B] tensors, complex where the row is."""
     planes, pos_sets, kinds = interp.pack(rows_list, specs)
-    if plain:
-        results, _ = interp.interp_multi_plain(planes, pos_sets)
-    else:
-        results, _ = interp.interp_multi(planes, pos_sets, pos=pos)
+    results, _ = interp.interp_multi(planes, pos_sets, pos=pos)
     if dbg is not None:
         dbg.update(interp=(planes, pos_sets), pos=pos)
     return [[v.reshape(batch, -1, v.shape[-1]) for v in o]
@@ -267,67 +255,54 @@ def _lookup(rows_list, specs, pos, plain: bool, batch: int, dbg):
 def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
                   arrays: dict, controls: spectral.Controls,
                   flags: spectral.SpectralFlags,
-                  consts: spectral.SpectralConsts, plain: bool = False,
-                  debug: bool = False, seeds=None):
-    """spectra/prev_spectra [batch, nB, ch, B] complex64; arrays = the
-    schedule's numpy flags; seeds, one integer a clip (default 0, 1, ...),
-    seed the randomised regime above 2x.  Returns SweepInputs, or
-    (SweepInputs, dict of intermediates) with debug=True.  plain=True runs
-    the plain PyTorch versions of the kernels on any device (for
-    comparisons)."""
+                  consts: spectral.SpectralConsts, debug: bool = False,
+                  seeds=None):
+    """spectra/prev_spectra [batch, nB, ch, B] complex64; arrays = a plan's
+    (the schedule's numpy flags and engine.plan_tables' tables);
+    seeds, one integer a clip (default 0, 1, ...), seed the randomised
+    regime above 2x.  Returns SweepInputs, or (SweepInputs, dict of
+    intermediates) with debug=True."""
     batch, nB, ch, B = spectra.shape
     dev = spectra.device
     longv = consts.long_vertical_step
     new = arrays["new_spectrum"]
     reanalyse = arrays["reanalyse"]
-    tf = np.maximum(arrays["time_factor"], f32(1.0 / MAX_CLEAN_STRETCH))
+    tf, ltf = arrays["tf"], arrays["ltf"]
     any_random = bool((tf > f32(MAX_CLEAN_STRETCH)).any())
     if controls.automated and len(controls.freq_multiplier) != nB:
         raise ValueError(f"per-block controls of "
                          f"{len(controls.freq_multiplier)} blocks for a plan "
                          f"of {nB}")
     dbg = {}
-    with span("sst.plan.wait"):
-        # a copy from pageable memory waits for the work queued before it
-        # (the analysis)
-        rotor = torch.as_tensor(consts.rotor, device=dev)
+    rotor = on_device(consts.rotor, dev)
 
     def blocks(z, idx):
-        return z[:, torch.as_tensor(idx, device=dev)]
+        return z[:, on_device(arrays[idx], dev)]
 
     def bmask(keep):
-        return torch.as_tensor(keep, device=dev)[None, :, None, None]
+        return on_device(arrays[keep], dev)[None, :, None, None]
 
     # ---- static input/prevInput chains (:332-376, 806-812) ----------------
     with span("sst.plan.inputs"):
-        idx = np.arange(nB)
-        src_input = np.maximum.accumulate(np.where(new, idx, -1))
-        m_prev = np.concatenate([[-1], src_input[:-1]])  # last new block < k
-        if (src_input == idx).all():
+        if new.all():     # every block's input is its own
             input_eff = spectra
         else:
-            input_eff = coefficients.where0(
-                bmask(src_input >= 0),
-                blocks(spectra, np.maximum(src_input, 0)))
+            input_eff = coefficients.where0(bmask("input_valid"),
+                                            blocks(spectra, "input_idx"))
         if reanalyse.all():
             prev_base = prev_spectra
         else:
-            base_idx = np.where(new & ~reanalyse, np.maximum(m_prev, 0),
-                                np.maximum(src_input, 0))
-            base_valid = np.where(new & ~reanalyse, m_prev >= 0,
-                                  src_input >= 0)
-            prev_base = torch.where(bmask(reanalyse), prev_spectra,
-                                    blocks(spectra, base_idx))
-            prev_base = coefficients.where0(bmask(base_valid | reanalyse),
-                                            prev_base)
+            prev_base = torch.where(bmask("reanalyse"), prev_spectra,
+                                    blocks(spectra, "base_idx"))
+            prev_base = coefficients.where0(bmask("base_keep"), prev_base)
         if new.all():
             prev_eff = prev_base * rotor
         else:
-            prev_eff = torch.where(bmask(new), prev_base * rotor, prev_base)
+            prev_eff = torch.where(bmask("new_spectrum"), prev_base * rotor,
+                                   prev_base)
 
         in_energy = (input_eff.real * input_eff.real
                      + input_eff.imag * input_eff.imag)  # [batch, nB, ch, B]
-    ltf = (f32(longv) * tf).astype(f32)
     R = batch * nB
 
     def rows(z):
@@ -341,7 +316,7 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
             raise ValueError(f"{len(seeds)} seeds for {batch} clips")
         with span("sst.plan.draws"):
             btf1, btf2 = (rows(t) for t in _random_time_factors(
-                tf, seeds, B, flags, dev, plain))
+                tf, seeds, B, flags, dev))
         if debug:
             dbg.update(btf1=btf1, btf2=btf2)
     if flags.mapped or flags.process_formants:
@@ -356,28 +331,23 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
         # ---- smoothing + peaks + output map (:816-917) --------------------
         # two steps, each a down then an up pass, each pass from the
         # previous one's last value: four passes in one launch (kernel C)
-        iir = scan_ops.iir_chain_plain if plain else scan_ops.iir_chain
         with span("sst.plan.smooth"):
-            sm, _ = iir(energy,
-                        torch.zeros(R, dtype=torch.float32, device=dev),
-                        consts.slew, (True, False, True, False))
+            sm, _ = scan_ops.iir_chain(
+                energy, torch.zeros(R, dtype=torch.float32, device=dev),
+                consts.slew, (True, False, True, False))
         # the peaks and output map in one launch (kernel G), which also
         # writes kernel A's three position sets: input_bin, input_bin - tf
         # and input_bin - longv*tf of each row's block (:744-786)
         with span("sst.plan.peaks"):
-            tf_d, ltf_d = _vote_shifts(tf.astype(f32).tobytes(),
-                                       ltf.tobytes(), dev)
+            tf_d, ltf_d = on_device(tf, dev), on_device(ltf, dev)
             if flags.custom_map is not None:
                 # a custom map (a Python callable) runs between G's runs
                 # entry and its out entry, on the card
                 pos, freq_grad = peaks.peaks_positions_custom(
-                    energy, sm, tf_d, ltf_d, flags.custom_map, consts,
-                    plain)
+                    energy, sm, tf_d, ltf_d, flags.custom_map, consts)
             else:
-                peaks_map = (peaks.peaks_positions_plain if plain
-                             else peaks.peaks_positions)
-                pos, freq_grad = peaks_map(energy, sm, tf_d, ltf_d, controls,
-                                           consts)
+                pos, freq_grad = peaks.peaks_positions(
+                    energy, sm, tf_d, ltf_d, controls, consts)
         if debug:
             dbg.update(energy=energy, smoothed=sm, input_bin=pos[:, 0],
                        freq_grad=freq_grad, pos=pos, shifts=(tf_d, ltf_d))
@@ -387,7 +357,7 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
         # interp rows, the unmapped prediction energies) sees the ratio ----
         with span("sst.plan.formant"):
             ratio, _ = _formant_ratio(energy, batch, controls, flags, consts,
-                                      plain, dbg if debug else None)
+                                      dbg if debug else None)
             in_energy = in_energy * ratio.reshape(batch, nB, 1, B)
 
     if any_random:
@@ -416,7 +386,7 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
                          + [rows(in_energy[:, :, c]) for c in range(ch)])
             specs = [(pos[:, 0], 3 * ch)] + [(pos[:, k], ch)
                                               for k in range(1, pos.shape[1])]
-            vals, *votes = _lookup(rows_list, specs, pos, plain, batch,
+            vals, *votes = _lookup(rows_list, specs, pos, batch,
                                    dbg if debug else None)
             pos_grad = torch.clamp(freq_grad.reshape(batch, nB, B), min=0)
             pi = vals[:ch]
@@ -430,16 +400,15 @@ def plan_spectral(spectra: torch.Tensor, prev_spectra: torch.Tensor,
                 # four sets over the input's planes (kernel A)
                 votes = _lookup([rows(p) for p in pi],
                                 [(pos[:, k], ch) for k in range(4)], pos,
-                                plain, batch, dbg if debug else None)
+                                batch, dbg if debug else None)
             else:
                 votes = [[interp._interp_shift_static(p, tf) for p in pi],
                          [interp._interp_shift_static(p, ltf) for p in pi]]
 
     # ---- the chain and vote coefficients (:722-803): one launch (kernel J)
     with span("sst.plan.coefficients"):
-        coefs = (coefficients.coefficients_plain if plain
-                 else coefficients.coefficients)
-        a1, a2, d1, d2, mc = coefs(pi, prev_i, pe, votes, rotor, new, longv)
+        a1, a2, d1, d2, mc = coefficients.coefficients(pi, prev_i, pe, votes,
+                                                       rotor, new, longv)
     if debug:
         dbg.update(coefficients=(pi, prev_i, pe, votes, rotor, new, longv))
 

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from . import prng
 from .config import MAX_CLEAN_STRETCH, NOISE_FLOOR, StretchConfig
+from .tables import on_device
 
 f32 = np.float32
 
@@ -415,20 +416,11 @@ class BlockInputs(NamedTuple):
 SMOOTHING = (True, False, True, False)
 
 
-def _block_tables(consts: SpectralConsts, device) -> dict:
-    """Per-(config, device) constants of process_block, built once."""
-    return _block_tables_cached(consts.rotor.tobytes(), consts.bands,
-                                consts.long_vertical_step,
-                                torch.device(device))
-
-
 @functools.lru_cache(maxsize=8)
-def _block_tables_cached(rotor: bytes, B: int, longv: int,
-                         device: torch.device) -> dict:
+def _block_tables(B: int, longv: int, device: torch.device) -> dict:
+    """Per-(shape, device) constants of process_block, built once."""
     b = torch.arange(B, device=device)
     return dict(
-        rotor=torch.as_tensor(np.frombuffer(rotor, np.complex64).copy(),
-                              device=device),
         b_f=b.to(torch.float32),
         up1=(b + 1).clamp(max=B - 1), upl=(b + longv).clamp(max=B - 1),
         has_up1=b < B - 1, has_upl=b < B - longv,
@@ -443,7 +435,7 @@ def _sel(rows: torch.Tensor, mc: torch.Tensor) -> torch.Tensor:
 
 def process_block(carry: SpectralCarry, xs: BlockInputs, controls: Controls,
                   flags: SpectralFlags, consts: SpectralConsts,
-                  plain: bool = False, dbg: Optional[dict] = None):
+                  dbg: Optional[dict] = None):
     """One spectral block (JAX spectral.process_block, in its order of
     operations) -> (carry', output spectrum [ch, B] complex64).
 
@@ -451,25 +443,26 @@ def process_block(carry: SpectralCarry, xs: BlockInputs, controls: Controls,
     the down-vote positions) for a mapped render, E and, with the base
     estimated, F and C for formants, I (the draws) above 2x, A (every
     lookup of the block in one launch: the prediction at the input bins
-    when mapped, and the votes) and H (the bin sweep).  plain=True takes
-    their plain versions on any device.  Nothing in it waits for the
-    card: every branch is decided by the flags and the block's host
-    values.  A `dbg` dict receives each
-    kernel's inputs (the card's checks call the kernels on them)."""
+    when mapped, and the votes) and H (the bin sweep); their plain
+    versions on a CPU carry or inside ops.plain().  Nothing in it waits
+    for the card: every branch is decided by the flags and the block's
+    host values.  A `dbg` dict receives each kernel's inputs (the card's
+    checks call the kernels on them)."""
     from . import planner
     from .ops import block_sweep, draws, interp, peaks, scan_ops
     ch, B = consts.channels, consts.bands
     longv = consts.long_vertical_step
     dev = carry.output.device
-    t = _block_tables(consts, dev)
+    t = _block_tables(B, longv, dev)
     new = bool(xs.new_spectrum)
 
     inp = xs.spectrum if new else carry.input
     prev_in = xs.prev_spectrum if xs.reanalyse else carry.prev_input
     output = carry.output
     if new:
-        output = output * t["rotor"]
-        prev_in = prev_in * t["rotor"]
+        rotor = on_device(consts.rotor, dev)
+        output = output * rotor
+        prev_in = prev_in * rotor
     in_energy = inp.real * inp.real + inp.imag * inp.imag      # [ch, B]
 
     tf = max(f32(xs.time_factor), f32(1 / MAX_CLEAN_STRETCH))
@@ -486,18 +479,15 @@ def process_block(carry: SpectralCarry, xs: BlockInputs, controls: Controls,
         # smoothing (C), then peaks, output map and the positions input_bin,
         # input_bin - tf and input_bin - longv*tf (G: :486-487 when the
         # block is not randomised)
-        iir = scan_ops.iir_chain_plain if plain else scan_ops.iir_chain
-        sm, _ = iir(energy, t["zero"], consts.slew, SMOOTHING)
+        sm, _ = scan_ops.iir_chain(energy, t["zero"], consts.slew, SMOOTHING)
         tf_d = torch.full((1,), float(tf), device=dev)
         ltf_d = torch.full((1,), float(ltf), device=dev)
         if flags.custom_map is not None:
             pos, freq_grad = peaks.peaks_positions_custom(
-                energy, sm, tf_d, ltf_d, flags.custom_map, consts, plain)
+                energy, sm, tf_d, ltf_d, flags.custom_map, consts)
         else:
-            peaks_map = (peaks.peaks_positions_plain if plain
-                         else peaks.peaks_positions)
-            pos, freq_grad = peaks_map(energy, sm, tf_d, ltf_d, controls,
-                                       consts)
+            pos, freq_grad = peaks.peaks_positions(energy, sm, tf_d, ltf_d,
+                                                   controls, consts)
         input_bin = pos[0, 0]
         if dbg is not None:
             dbg.update(energy=energy, smoothed=sm, shifts=(tf_d, ltf_d))
@@ -507,8 +497,7 @@ def process_block(carry: SpectralCarry, xs: BlockInputs, controls: Controls,
     few, fw = carry.freq_est_weighted, carry.freq_est_weight
     if flags.process_formants:
         ratio, estimate = planner._formant_ratio(
-            energy, 1, controls, flags, consts, plain, None,
-            estimate=(few, fw))
+            energy, 1, controls, flags, consts, None, estimate=(few, fw))
         in_energy = in_energy * ratio
         if estimate is not None:
             few, fw = estimate
@@ -523,8 +512,7 @@ def process_block(carry: SpectralCarry, xs: BlockInputs, controls: Controls,
                                       torch.full((), float(lo), device=dev),
                                       torch.full((), float(tf), device=dev))
         else:
-            block = draws.draws_block_plain if plain else draws.draws_block
-            btf1, btf2 = block(sub, lo, tf, B, dev)
+            btf1, btf2 = draws.draws_block(sub, lo, tf, B, dev)
         vote_pos = [input_bin - btf1, input_bin - float(longv) * btf1,
                     torch.roll(input_bin, -1) - btf2,
                     torch.roll(input_bin, -longv) - float(longv) * btf2]
@@ -549,10 +537,7 @@ def process_block(carry: SpectralCarry, xs: BlockInputs, controls: Controls,
         stacked = torch.stack([p for p, _ in specs], 1)
         specs = [(stacked[:, k], n) for k, (_, n) in enumerate(specs)]
     planes, pos_sets, kinds = interp.pack(rows_list, specs)
-    if plain:
-        results, _ = interp.interp_multi_plain(planes, pos_sets)
-    else:
-        results, _ = interp.interp_multi(planes, pos_sets, pos=stacked)
+    results, _ = interp.interp_multi(planes, pos_sets, pos=stacked)
     if dbg is not None:
         dbg.update(interp=(planes, pos_sets, stacked), energy_sum=(
             energy if flags.mapped or flags.process_formants else None))
@@ -608,8 +593,7 @@ def process_block(carry: SpectralCarry, xs: BlockInputs, controls: Controls,
         *[v.contiguous() for v in (ch_twist, pred_energy, pred_input)])
     if dbg is not None:
         dbg["sweep"] = sweep_in
-    sweep = block_sweep.block_sweep_plain if plain else block_sweep.block_sweep
-    outputs = sweep(sweep_in, longv)
+    outputs = block_sweep.block_sweep(sweep_in, longv)
 
     # ---- prevInput <- input (:806-812) ------------------------------------
     carry2 = SpectralCarry(input=inp, prev_input=inp if new else prev_in,

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import StretchConfig
-from .ops import dft
+from .tables import on_device
 from .windows import kaiser_window
 
 
@@ -57,48 +57,30 @@ class StftBasis:
         return cls._cached(cfg.block_samples, cfg.interval_samples)
 
 
-def analyze(frames: torch.Tensor, basis: StftBasis,
-            plain: bool = False) -> torch.Tensor:
-    """Windowed modified-DFT analysis: frames [..., block] f32 ->
-    [..., bands] complex64.  Kernel D on a CUDA tensor (plain=False), else
-    `analyze_plain`."""
-    if plain:
-        return analyze_plain(frames, basis)
-    return dft.analyze(frames, basis)
-
-
 def analyze_plain(frames: torch.Tensor, basis: StftBasis) -> torch.Tensor:
     """Plain version of the analysis: window, pad, twist, torch.fft.fft
     (cuFFT on the card), keep the lower half."""
     dev = frames.device
-    y = frames * torch.as_tensor(basis.window, device=dev)
+    y = frames * on_device(basis.window, dev)
     y = F.pad(y, (0, basis.fft_samples - basis.block_samples))
-    z = y * torch.as_tensor(basis.twist, device=dev)
+    z = y * on_device(basis.twist, dev)
     return torch.fft.fft(z, dim=-1)[..., :basis.bands]
 
 
-@functools.lru_cache(maxsize=8)
-def _synthesis_consts(twist: bytes, window: bytes, device: torch.device):
-    """The twist's planes and the window on `device`, copied once per
-    (basis, device): a stream synthesises every block with them."""
-    tw = np.frombuffer(twist, np.complex64)
-    return tuple(torch.as_tensor(np.array(a, np.float32), device=device)
-                 for a in (tw.real, tw.imag,
-                           np.frombuffer(window, np.float32)))
+def twist_planes(twist: np.ndarray):
+    """The twist's real and imaginary planes, float32."""
+    return twist.real.astype(np.float32), twist.imag.astype(np.float32)
 
 
 def synthesize(spectra: torch.Tensor, basis: StftBasis) -> torch.Tensor:
     """Inverse modified FFT + synthesis window: [..., bands] complex64 ->
     [..., block] f32, y[n] = 2*Re(ifft(pad(S))[n] * conj(twist[n])) * w[n]."""
-    tw_r, tw_i, window = _synthesis_consts(
-        np.ascontiguousarray(basis.twist).tobytes(),
-        np.ascontiguousarray(basis.window, np.float32).tobytes(),
-        spectra.device)
+    tw_r, tw_i = on_device(basis.twist, spectra.device, twist_planes)
     full = F.pad(spectra, (0, basis.fft_samples - basis.bands))
     u = torch.fft.ifft(full, dim=-1)
     y = 2.0 * (u.real * tw_r + u.imag * tw_i)
     y = y[..., :basis.block_samples]
-    return y * window
+    return y * on_device(basis.window, spectra.device)
 
 
 def band_freqs(basis: StftBasis) -> np.ndarray:

@@ -28,8 +28,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import spectral, stft
+from . import ops, spectral, stft
 from .config import NOISE_FLOOR, StretchConfig, device_for
+from .ops import dft
+from .tables import on_device
 from .utils.profiling import span
 
 f32 = np.float32
@@ -130,7 +132,8 @@ def _energy(audio: np.ndarray) -> np.float32:
 class StreamingStretch:
     """Streaming facade bound to one configuration and control setting (JAX
     streaming.StreamingStretch).  `device`: "cuda" (the kernels) or "cpu";
-    plain=True runs the plain versions of the kernels on the device."""
+    plain=True runs the plain versions of the kernels on the device
+    (ops.plain())."""
 
     def __init__(self, cfg: StretchConfig, controls: spectral.Controls,
                  flags: spectral.SpectralFlags, seed: int = 0,
@@ -143,8 +146,13 @@ class StreamingStretch:
         self.basis = stft.StftBasis.for_config(cfg)
         self.consts = spectral.SpectralConsts.for_config(cfg)
         self.state = initial_state(cfg, self.consts, seed, self.device)
-        w = self.basis.window
-        self._w2 = torch.as_tensor((w * w).astype(f32), device=self.device)
+        # the tables every block reads, made here: a copy inside the block
+        # loop would wait for the card
+        on_device(self.consts.rotor, self.device)
+        dft.consts(self.basis, self.device)
+        on_device(self.basis.twist, self.device, stft.twist_planes)
+        w = on_device(self.basis.window, self.device)
+        self._w2 = w * w
         self.blocks = 0           # blocks processed (the spectral steps)
 
     def reset(self, seed: int = 0):
@@ -201,7 +209,9 @@ class StreamingStretch:
                     st = st._replace(
                         silence_counter=st.silence_counter + n_in)
             if out is None:
-                st, out = self._normal(st, timeline, n_in, n_out, is_silent)
+                with ops.plain(self.plain):
+                    st, out = self._normal(st, timeline, n_in, n_out,
+                                           is_silent)
             self.state = st._replace(in_hist=new_hist)
             return out
 
@@ -246,14 +256,13 @@ class StreamingStretch:
                     frames = torch.cat([
                         timeline[:, head - block:head],
                         timeline[:, head - H - block:head - H]])
-                    specs = stft.analyze(frames, self.basis, self.plain)
+                    specs = dft.analyze(frames, self.basis)
                     xs = spectral.BlockInputs(specs[:ch], specs[ch:],
                                               new_spectrum, reanalyse,
                                               time_factor)
                 with span("sst.stream.block.spectral"):
                     carry, out_spec = spectral.process_block(
-                        carry, xs, self.controls, self.flags, self.consts,
-                        self.plain)
+                        carry, xs, self.controls, self.flags, self.consts)
                 self.blocks += 1
                 with span("sst.stream.block.synthesis"):
                     pos = o_k + split_shift

@@ -1,5 +1,4 @@
-"""The diagonal phase sweep (kernel B, csrc/sweep.cu) and the planned
-spectral pipeline around it.
+"""The diagonal phase sweep (kernel B, csrc/sweep.cu).
 
 The only true recurrent state of the spectral processor is Band.output.  With
 the planner's coefficients (planner.py) the main-prediction vote sum is
@@ -10,9 +9,9 @@ for the max-energy channel, whose output the other channels are then
 phase-locked to.  On the diagonal t = b + k*(LV+1) every dependency lies on
 diagonals t-1 and t-LV, so a clip takes B + (nB-1)*(LV+1) sequential steps.
 `sweep` launches the kernel on a CUDA tensor, one CTA per clip on the
-schedule of `sweep_schedule`; on a CPU tensor it runs `sweep_plain`, a loop
-over diagonals vectorised over clips and rows in explicit float32 real/imag
-arithmetic with the kernel's operation order.
+schedule of `sweep_schedule`; on a CPU tensor, or inside ops.plain(), it
+runs `sweep_plain`, a loop over diagonals vectorised over clips and rows in
+explicit float32 real/imag arithmetic with the kernel's operation order.
 """
 from __future__ import annotations
 
@@ -23,9 +22,8 @@ import torch.nn.functional as F
 
 from . import spectral
 from .config import NOISE_FLOOR
-from .ops import _build
-from .planner import SweepInputs, plan_spectral
-from .utils.profiling import span
+from .ops import _build, runs_plain
+from .planner import SweepInputs
 
 launches = 0          # kernel launches of sweep
 SWEEP_MAX_THREADS = 512   # threads of one CTA (csrc/sweep.cu MAX_THREADS)
@@ -141,7 +139,7 @@ def sweep(inputs: SweepInputs, longv: int) -> torch.Tensor:
     """SweepInputs ([batch, nB, B] leaves) -> outputs [batch, ch, nB, B]
     complex64."""
     global launches
-    if inputs.a1.device.type == "cpu":
+    if runs_plain(inputs.a1):
         return sweep_plain(inputs, longv)
     batch, nB, B = inputs.a1.shape
     ch = len(inputs.pi)
@@ -189,18 +187,3 @@ def sweep(inputs: SweepInputs, longv: int) -> torch.Tensor:
     launches += 1
     return out
 
-
-def spectral_all_blocks(spectra, prev_spectra, arrays,
-                        controls: spectral.Controls,
-                        flags: spectral.SpectralFlags,
-                        consts: spectral.SpectralConsts, plain: bool = False,
-                        seeds=None):
-    """Planned pipeline: [batch, nB, ch, B] spectra -> [batch, ch, nB, B]
-    output spectra (channels-major, as the synthesis stage consumes them).
-    seeds: one integer a clip for the randomised regime (plan_spectral)."""
-    with span("sst.render.plan"):
-        inputs = plan_spectral(spectra, prev_spectra, arrays, controls,
-                               flags, consts, plain=plain, seeds=seeds)
-    longv = consts.long_vertical_step
-    with span("sst.render.sweep"):
-        return sweep_plain(inputs, longv) if plain else sweep(inputs, longv)

@@ -321,3 +321,48 @@ def test_jax_automation_carried_by_convert(stereo_signal):
                               convert.plan_from_arrays(d), controls, flags)
     want, _ = port.exact(sig, n, automation=auto)
     assert out[0].numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("entry", ["batched", "node"])
+def test_plain_entries_enter_the_scope(monkeypatch, entry):
+    """StretchModel.batched(plain=True) and StretchNode(plain=True) run
+    their work inside ops.plain() and leave it on return, also when the
+    work raises; plain=False leaves the scope off."""
+    from signalsmith_stretch_torch import ops, spectral
+    from signalsmith_stretch_torch.models import StretchModel
+    from signalsmith_stretch_torch.scheduler import StretchNode
+    seen, fail = [], []
+    owner, name = ((engine, "render_exact") if entry == "batched"
+                   else (spectral, "process_block"))
+    real = getattr(owner, name)
+
+    def work(*a, **k):
+        seen.append(ops.runs_plain("cuda"))
+        if fail:
+            raise RuntimeError("work failed")
+        return real(*a, **k)
+
+    monkeypatch.setattr(owner, name, work)
+    rng = np.random.default_rng(2)
+    clip = rng.standard_normal((1, 1, 8000)).astype(np.float32) * 0.1
+
+    def call(plain):
+        if entry == "batched":
+            StretchModel.build(1, RATE, 8000, 10000, device="cpu").batched(
+                clip, None, plain)
+        else:
+            node = StretchNode(RATE, channels=1, device="cpu", plain=plain)
+            node.add_buffers(clip[0])
+            node.start(input=0.0, rate=0.8)
+            node.render(0.25)
+
+    call(False)
+    assert seen and not any(seen)
+    seen.clear()
+    call(True)
+    assert seen and all(seen) and not ops.runs_plain("cuda")
+    seen.clear()
+    fail.append(True)
+    with pytest.raises(RuntimeError, match="work failed"):
+        call(True)
+    assert seen == [True] and not ops.runs_plain("cuda")

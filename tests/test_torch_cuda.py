@@ -33,11 +33,12 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import chip_smoke  # noqa: E402
-from signalsmith_stretch_torch import stft, wavefront  # noqa: E402
+from signalsmith_stretch_torch import ops, stft, wavefront  # noqa: E402
 from signalsmith_stretch_torch.config import StretchConfig  # noqa: E402
 from signalsmith_stretch_torch.models import StretchModel  # noqa: E402
 from signalsmith_stretch_torch.ops import dft, interp, scan_ops  # noqa: E402
 from signalsmith_stretch_torch.planner import SweepInputs  # noqa: E402
+from signalsmith_stretch_torch.tables import on_device  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -151,22 +152,41 @@ def test_sweep_kernel_matches_plain(dev, nB, B, longv, ch, views):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(semitones=0), dict(semitones=12),
-    dict(semitones=5, formant_semitones=3, formant_compensation=True),
-    dict(formant_semitones=4)], ids=["0", "12", "formant_pitch", "formant"])
-def test_render_kernels_match_plain(dev, kw):
+@pytest.mark.parametrize("ratio,kw", [
+    (1.25, dict(semitones=0)), (1.25, dict(semitones=12)),
+    (1.25, dict(semitones=5, formant_semitones=3, formant_compensation=True)),
+    (1.25, dict(formant_semitones=4)), (3.0, dict(semitones=0))],
+    ids=["0", "12", "formant_pitch", "formant", "3x"])
+def test_render_kernels_match_plain(dev, ratio, kw):
+    """Through the kernels and through the plain versions, a render's
+    gates (chip_smoke.render_vs_plain); then a later render_exact of the
+    model on device input copies no table to the card: its only copies
+    to the card are the sweep's and J's per-call pointer tables, from
+    pinned memory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from signalsmith_stretch_torch import engine
     rng = np.random.default_rng(3)
     rate, n = 8000, 12000
     t = np.arange(n) / rate
     clip = np.stack([0.4 * np.sin(2 * np.pi * 165 * t + c)
                      + 0.02 * rng.standard_normal(n) for c in range(2)])
     model = StretchModel.build(channels=2, sample_rate=rate, in_samples=n,
-                               out_samples=int(n * 1.25), tonality_hz=2000,
+                               out_samples=int(n * ratio), tonality_hz=2000,
                                device=dev, **kw)
-    ok, gate = chip_smoke.render_vs_plain(
-        model, _t(clip[None].astype(np.float32), dev))
+    audio = _t(clip[None].astype(np.float32), dev)
+    ok, gate = chip_smoke.render_vs_plain(model, audio)
     assert ok, gate
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.render_exact(audio, model.plan, model.controls, model.flags)
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    to_card = [name for name in on_card if "HtoD" in name]
+    assert len(on_card) > len(to_card)
+    assert len(to_card) <= 2 and all("Pinned" in c for c in to_card), to_card
 
 
 @pytest.mark.parametrize("preset,rate", [
@@ -299,10 +319,10 @@ def test_peaks_kernel_matches_cpu(dev, source):
                          + 0.02 * rng.standard_normal(n) for c in range(2)])
         spectra, prev = engine.analyze_stage(
             _t(clip[None].astype(np.float32), dev), model.plan)
-        _, dbg = planner.plan_spectral(spectra, prev, model.plan.arrays,
-                                       model.controls, model.flags,
-                                       model.plan.consts, plain=True,
-                                       debug=True)
+        with ops.plain():
+            _, dbg = planner.plan_spectral(spectra, prev, model.plan.arrays,
+                                           model.controls, model.flags,
+                                           model.plan.consts, debug=True)
         e, s = dbg["energy"], dbg["smoothed"]
         tf, ltf = dbg["shifts"]
     else:
@@ -346,8 +366,8 @@ def test_interp_stacked_positions_match_list(dev):
 
 
 def test_planner_launches(dev):
-    """The mapped planner launches G once (and A, C and J once each); with
-    plain=True it launches no kernel."""
+    """The mapped planner launches G once (and A, C and J once each);
+    inside ops.plain() it launches no kernel."""
     from signalsmith_stretch_torch import engine, planner, wavefront
     from signalsmith_stretch_torch.ops import peaks
     model, _, n = _mapped_model(dev)
@@ -358,7 +378,8 @@ def test_planner_launches(dev):
             model.plan.consts)
     for plain, want in ((True, 0), (False, 1)):
         chip_smoke.reset_counters()
-        planner.plan_spectral(*args, plain=plain)
+        with ops.plain(plain):
+            planner.plan_spectral(*args)
         torch.cuda.synchronize()
         counts = chip_smoke.counters()
         assert counts["peaks_map"] == counts["interp_multi"] == want
@@ -523,9 +544,10 @@ def test_peaks_split_entries_match_plain(dev, source):
                          for c in range(2)])
         spectra, prev = engine.analyze_stage(
             _t(clip[None].astype(np.float32), dev), model.plan)
-        _, dbg = planner.plan_spectral(spectra, prev, model.plan.arrays,
-                                       model.controls, model.flags, consts,
-                                       plain=True, debug=True)
+        with ops.plain():
+            _, dbg = planner.plan_spectral(spectra, prev, model.plan.arrays,
+                                           model.controls, model.flags,
+                                           consts, debug=True)
         e, s = dbg["energy"], dbg["smoothed"]
         tf, ltf = dbg["shifts"]
     else:
@@ -965,7 +987,7 @@ def _draws_check(dev, seeds, tf, B):
     planner's cached keys and bounds; the launch counter moves by one."""
     from signalsmith_stretch_torch import planner
     from signalsmith_stretch_torch.ops import draws
-    bounds = planner._random_bounds(np.asarray(tf, np.float32).tobytes(), dev)
+    bounds = on_device(np.asarray(tf, np.float32), dev, planner.draw_bounds)
     args = (planner._clip_keys(tuple(seeds), dev), *bounds, B)
     n0 = draws.launches
     got = draws.draws_factors(*args)
@@ -1090,6 +1112,7 @@ def _planner_coefficient_args(dev, case):
         new = arrays["new_spectrum"].copy()
         new[2::3] = False
         arrays.update(new_spectrum=new, reanalyse=arrays["reanalyse"] & new)
+        arrays = engine.plan_tables(arrays, model.cfg)
     out, dbg = planner.plan_spectral(spectra, prev, arrays, model.controls,
                                      model.flags, model.plan.consts,
                                      debug=True)

@@ -43,6 +43,7 @@ from test_torch_planner import _close, _leaves  # noqa: E402
 from signalsmith_stretch_torch import SignalsmithStretch  # noqa: E402
 from signalsmith_stretch_torch import planner, prng, spectral  # noqa: E402
 from signalsmith_stretch_torch.models import StretchModel  # noqa: E402
+from signalsmith_stretch_torch import ops  # noqa: E402
 from signalsmith_stretch_torch.ops import peaks  # noqa: E402
 from signalsmith_stretch_tpu import api as japi  # noqa: E402
 from signalsmith_stretch_tpu import engine as jengine  # noqa: E402
@@ -365,7 +366,8 @@ def test_split_plain_matches_one_launch(B, fn):
     tf = torch.as_tensor(rng.uniform(0.5, 2.0, 7).astype(f32))
     ltf = (tf * 6).contiguous()
     want = peaks.peaks_positions_plain(e, s, tf, ltf, model.controls, consts)
-    got = peaks.peaks_positions_custom(e, s, tf, ltf, fn, consts, plain=True)
+    with ops.plain():
+        got = peaks.peaks_positions_custom(e, s, tf, ltf, fn, consts)
     wrapped = peaks.peaks_positions_custom(e, s, tf, ltf, fn, consts)
     for g, w, x in zip(got, want, wrapped):
         assert chip_smoke.same_bits(g, w) and chip_smoke.same_bits(x, w)

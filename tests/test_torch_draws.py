@@ -23,6 +23,7 @@ torch.set_num_threads(1)
 from signalsmith_stretch_torch import planner, prng  # noqa: E402
 from signalsmith_stretch_torch.config import MAX_CLEAN_STRETCH  # noqa: E402
 from signalsmith_stretch_torch.ops import draws  # noqa: E402
+from signalsmith_stretch_torch.tables import on_device  # noqa: E402
 
 f32 = np.float32
 SOURCE = (Path(__file__).resolve().parents[1] / "signalsmith_stretch_torch"
@@ -66,7 +67,7 @@ def test_factors_plain_match_jax(seeds, rows, B):
     keys = planner._clip_keys(tuple(seeds), cpu)
     assert keys.dtype == torch.uint32
     assert keys.tolist() == [list(prng.key(s)) for s in seeds]
-    tf_t, lo_d, random_tf = planner._random_bounds(tf.tobytes(), cpu)
+    tf_t, lo_d, random_tf = on_device(tf, cpu, planner.draw_bounds)
     got = draws.draws_factors_plain(keys, tf_t, lo_d, random_tf, B)
     again = draws.draws_factors(keys, tf_t, lo_d, random_tf, B)
     for clip, seed in enumerate(seeds):
@@ -81,7 +82,7 @@ def test_lo_zero_at_4x_and_keys_past_2_31():
     """At exactly 4x the lower bound is +0 and the draws span [0, 4); the
     keys of seeds -1 and 2**31 keep their top bit as uint32."""
     cpu = torch.device("cpu")
-    _, lo_d, _ = planner._random_bounds(np.asarray([4.0], f32).tobytes(), cpu)
+    _, lo_d, _ = on_device(np.asarray([4.0], f32), cpu, planner.draw_bounds)
     assert lo_d.item() == 0.0 and not torch.signbit(lo_d).any()
     keys = planner._clip_keys((-1, 2 ** 31), cpu)
     assert keys.tolist() == [[0, 0xFFFFFFFF], [0, 0x80000000]]
@@ -186,7 +187,7 @@ def test_walk_model_writes_each_element_once(batch, nB, B, ctas):
             want, count[h].shape))
     seeds = tuple(range(batch))
     cpu = torch.device("cpu")
-    tf_t, lo_d, random_tf = planner._random_bounds(tf.tobytes(), cpu)
+    tf_t, lo_d, random_tf = on_device(tf, cpu, planner.draw_bounds)
     plain = draws.draws_factors_plain(planner._clip_keys(seeds, cpu), tf_t,
                                       lo_d, random_tf, B)
     for clip, seed in enumerate(seeds):

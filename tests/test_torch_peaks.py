@@ -38,7 +38,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import chip_smoke  # noqa: E402
-from signalsmith_stretch_torch import spectral  # noqa: E402
+from signalsmith_stretch_torch import ops, spectral  # noqa: E402
 from signalsmith_stretch_torch.models import StretchModel  # noqa: E402
 from signalsmith_stretch_torch.ops import peaks  # noqa: E402
 from signalsmith_stretch_tpu import spectral as jspectral  # noqa: E402
@@ -641,8 +641,8 @@ def test_split_kernel_model_matches_plain(B, threads, nan_outside):
     """G's runs and out entries on the CPU (split_kernel_model) around the
     built-in map written as a callable, with 3 CTAs walking the rows: the
     runs' planes and counts bit-equal to peak_runs_plain, and pos and
-    freq_grad bit-equal to the plain split (peaks_positions_custom with
-    plain=True) and to the one-launch plain version; NaN in the invalid
+    freq_grad bit-equal to the plain split (peaks_positions_custom inside
+    ops.plain()) and to the one-launch plain version; NaN in the invalid
     slots changes nothing."""
     model, _ = _models()
     e, s = _rows(B, seed=5 * B + threads)
@@ -655,7 +655,8 @@ def test_split_kernel_model_matches_plain(B, threads, nan_outside):
     args = [torch.as_tensor(a) for a in (e, s, tf, ltf)]
     for g, w in zip(runs, peaks.peak_runs_plain(*args[:2], consts)):
         _assert_bits(g, w.numpy())
-    split = peaks.peaks_positions_custom(*args, torch_map, consts, plain=True)
+    with ops.plain():
+        split = peaks.peaks_positions_custom(*args, torch_map, consts)
     one = peaks.peaks_positions_plain(*args, model.controls, consts)
     for g, w, o in zip((pos, grad), split, one):
         _assert_bits(g, w.numpy())
@@ -725,8 +726,8 @@ def test_split_kernel_model_walks(case, B):
         _assert_bits(g, w.numpy())
     if case != "n_peaks_outside":
         one = peaks.peaks_positions_plain(*args, model.controls, consts)
-        split = peaks.peaks_positions_custom(*args, torch_map, consts,
-                                             plain=True)
+        with ops.plain():
+            split = peaks.peaks_positions_custom(*args, torch_map, consts)
         for g, o, x in zip(got, one, split):
             _assert_bits(g, o.numpy())
             _assert_bits(g, x.numpy())

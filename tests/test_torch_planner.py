@@ -13,6 +13,7 @@ different orders (the vote coefficients measure up to 3e-7); the energies,
 prediction inputs and the max-channel choice measure bit-equal.
 """
 import dataclasses
+import gc
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,8 +22,10 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from signalsmith_stretch_torch import planner  # noqa: E402
+from signalsmith_stretch_torch import (convert, engine, planner,  # noqa: E402
+                                       stft, tables)
 from signalsmith_stretch_torch.config import MAX_CLEAN_STRETCH  # noqa: E402
+from signalsmith_stretch_torch.ops import interp  # noqa: E402
 from signalsmith_stretch_torch.models import StretchModel  # noqa: E402
 from signalsmith_stretch_tpu import engine as jengine  # noqa: E402
 from signalsmith_stretch_tpu import planner as jplanner  # noqa: E402
@@ -222,26 +225,121 @@ def test_planner_is_per_clip(stereo_signal):
             np.testing.assert_array_equal(both[k][i], one[k], err_msg=k)
 
 
-def test_vote_shifts_built_once(stereo_signal):
-    """The mapped planner's per-block shifts tf and ltf = f32(longv) * tf
-    are built once per plan and device: a second plan of the same
-    schedule reads the same tensors, and they hold the schedule's float32
-    values."""
-    sig, rate = stereo_signal
-    model, _ = _models(sig, rate, "pitch+12_1.25")
-    from signalsmith_stretch_torch import engine
-    spectra, prev = engine.analyze_stage(torch.as_tensor(sig[None]),
-                                         model.plan)
-    args = (spectra, prev, model.plan.arrays, model.controls, model.flags,
-            model.plan.consts)
-    first = planner.plan_spectral(*args, debug=True)[1]["shifts"]
-    again = planner.plan_spectral(*args, debug=True)[1]["shifts"]
-    assert all(a is b for a, b in zip(first, again))
-    tf = np.maximum(model.plan.arrays["time_factor"],
-                    np.float32(1.0 / MAX_CLEAN_STRETCH)).astype(np.float32)
-    ltf = np.float32(model.plan.consts.long_vertical_step) * tf
-    np.testing.assert_array_equal(first[0].numpy(), tf)
-    np.testing.assert_array_equal(first[1].numpy(), ltf.astype(np.float32))
+# a render shape for each table of tables.on_device: (time ratio,
+# semitones, tonality limit in Hz, preset, channels, input samples); the
+# 5x compression reaches the silence bypass's restricted tails
+TABLE_RENDERS = {
+    "1.25": (1.25, 0, 0, "default", 2, 16000),
+    "1.004": (1.004, 0, 0, "default", 2, 16000),
+    "pitch+12": (1.25, 12, 2000, "default", 2, 16000),
+    "3.0": (3.0, 0, 0, "default", 2, 16000),
+    "not_all_new": (1.004, 0, 0, "default", 2, 16000),
+    "0.2": (0.2, 0, 0, "cheaper", 1, 32000),
+}
+TABLES = {
+    # name: (render, the plan's table arrays, each (array, derive, args))
+    "frame_index": ("1.25", lambda p: [
+        (p.arrays["frame_starts"], engine.window_index, ())]),
+    "re_rows": ("1.004", lambda p: [(p.re_rows, None, ())]),
+    "analysis_plain": ("1.25", lambda p: [(p.basis.window, None, ()),
+                                          (p.basis.twist, None, ())]),
+    "rotor": ("1.25", lambda p: [(p.consts.rotor, None, ())]),
+    "input_chains": ("not_all_new", lambda p: [
+        (p.arrays[k], None, ()) for k in (
+            "input_idx", "input_valid", "base_idx", "base_keep",
+            "reanalyse", "new_spectrum")]),
+    "vote_shifts": ("pitch+12", lambda p: [(p.arrays["tf"], None, ()),
+                                           (p.arrays["ltf"], None, ())]),
+    "shift_taps": ("1.25", lambda p: [
+        (p.arrays[k], interp.shift_taps, (p.consts.bands,))
+        for k in ("tf", "ltf")]),
+    "draw_bounds": ("3.0", lambda p: [
+        (p.arrays["tf"], planner.draw_bounds, ())]),
+    "wola_weight": ("1.25", lambda p: [(p.weight, None, ())]),
+    "synthesis": ("1.25", lambda p: [
+        (p.basis.twist, stft.twist_planes, ()),
+        (p.basis.window, None, ())]),
+    "silence": ("0.2", lambda p: [
+        (p.silence.pre_weight, None, ()), (p.silence.pm_weight, None, ()),
+        (p.silence.pass_idx, np.asarray, (np.int64,))]),
+}
+CPU = torch.device("cpu")
+
+
+def _table_render(name):
+    """A model of TABLE_RENDERS[name] on the CPU, its plan (with every
+    third block not new for "not_all_new": mostly not re-analysed, it
+    takes every gather of the input chains) and a batch of two clips."""
+    ratio, semis, ton, preset, ch, n = TABLE_RENDERS[name]
+    model = StretchModel.build(ch, 8000, n, int(round(n * ratio)),
+                               semitones=semis, tonality_hz=ton,
+                               cheaper=preset == "cheaper", device="cpu")
+    plan = model.plan
+    if name == "not_all_new":
+        new = plan.arrays["new_spectrum"].copy()
+        new[2::3] = False
+        plan = dataclasses.replace(plan, arrays=engine.plan_tables(
+            dict(plan.arrays, new_spectrum=new), plan.cfg))
+    rng = np.random.default_rng(7)
+    clips = torch.as_tensor(rng.standard_normal((2, ch, n)).astype(
+        np.float32) * 0.1)
+    return model, plan, clips
+
+
+def _held(plan, tables_of):
+    """The owner's copies of the plan's tables, None where it holds none."""
+    return [tables._copies.get((id(a), CPU, derive, args))
+            for a, derive, args in tables_of(plan)]
+
+
+def _same(a, b):
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+@pytest.mark.parametrize("table", sorted(TABLES))
+def test_tables_built_once(table):
+    """Each table of a render is one copy per (plan, device), owned by
+    tables.on_device: two renders of one plan read the very same tensors;
+    another plan of the same shape (copies of its arrays carried across by
+    convert) gets tensors of its own, with the same values; and its
+    entries are gone once that plan is collected."""
+    render, tables_of = TABLES[table]
+    model, plan, clips = _table_render(render)
+
+    def run(p):
+        return engine.render_exact(clips, p, model.controls, model.flags)
+
+    run(plan)
+    first = _held(plan, tables_of)
+    assert all(t is not None for t in first)
+    run(plan)
+    assert all(a is b for a, b in zip(first, _held(plan, tables_of)))
+    other = convert.plan_from_arrays({
+        k: np.array(v) for k, v in convert.plan_to_arrays(plan).items()})
+    run(other)
+    theirs = _held(other, tables_of)
+    assert all(a is not b and _same(a, b) for a, b in zip(first, theirs))
+    keys = [(id(a), CPU, derive, args) for a, derive, args in tables_of(other)]
+    del other, theirs
+    gc.collect()
+    assert not any(k in tables._copies for k in keys)
+
+
+@pytest.mark.parametrize("render", ["1.25", "pitch+12", "3.0", "0.2"])
+def test_prepare_makes_every_table(render):
+    """tables.prepare makes every table a render reads: the render after
+    it adds none, and a second prepare adds none either."""
+    model, plan, clips = _table_render(render)
+    tables.prepare(plan, model.controls, model.flags, CPU)
+    n = len(tables._copies)
+    engine.render_exact(clips, plan, model.controls, model.flags)
+    tables.prepare(plan, model.controls, model.flags, CPU)
+    assert len(tables._copies) == n
+
 
 
 def test_above_twice_stretch_is_not_ported(stereo_signal):

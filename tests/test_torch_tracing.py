@@ -31,7 +31,7 @@ STAGES = ["sst.render.analysis", "sst.render.plan", "sst.render.sweep",
 BLOCK_PHASES = ["sst.stream.block.analysis", "sst.stream.block.spectral",
                 "sst.stream.block.synthesis"]
 # the plan's phases as plan_spectral runs them, for each render below
-_HEAD = ["sst.plan.wait", "sst.plan.inputs"]
+_HEAD = ["sst.plan.inputs"]
 _MAPPED = ["sst.plan.energy", "sst.plan.smooth", "sst.plan.peaks"]
 _TAIL = ["sst.plan.lookup", "sst.plan.coefficients"]
 PLAN_PHASES = {
@@ -136,10 +136,9 @@ def test_render_spans_nest_in_order(name):
     assert _children(spans, render) == STAGES
     plan = names.index("sst.render.plan")
     assert _children(spans, plan) == PLAN_PHASES[name]
-    for stage in ("sst.render.analysis", "sst.render.sweep"):
+    for stage in ("sst.render.analysis", "sst.render.sweep",
+                  "sst.render.synthesis"):
         assert _children(spans, names.index(stage)) == []
-    assert _children(spans, names.index("sst.render.synthesis")) == [
-        "sst.synthesis.wait"]
 
 
 def test_node_quantum_spans_and_block_count():
