@@ -33,7 +33,12 @@ Phases, in order; any failure exits non-zero before the last line:
      timed, and the draws (I) of both cells' batches bit-equal to their
      plain version (prng.uniform and the selects), also under key words
      past 2**31, timed against a bound of bytes or of the int32
-     instructions its SASS issues a draw (cuobjdump);
+     instructions its SASS issues a draw (cuobjdump); the synthesis at the
+     1.25x, pitch+12 and 3x renders' shapes (every fourth clip zeroed, so
+     the silence bypass runs): the inverse modified DFT (K) within 3e-6 of
+     the blocks' peak of the plain synthesis (cuFFT on a padded copy), the
+     assembly (L) bit-equal to its plain version on K's blocks, each timed
+     beside its byte bound, and K and L together against the plain stage;
   4. renders of stereo48k_default_1.25x, stereo48k_pitch+12_tonality8k,
      formant_vocal_shift (base 220 Hz), formant_vocal_shift_auto (base
      estimated per block), stereo48k_3x_random (3x, no pitch map),
@@ -119,7 +124,9 @@ against those of an earlier peaks.cu built from FILE (for instance
 in turns on the pitch+12 cell's planner rows and at one row; with
 `--scheduler-parallel`, phases 9 and 10 alone (after the header and the
 build); with `--coefficients`, J alone on the planner's arguments of
-pitch+12 and 1.25x at batch 8 and 32 (after the header and the build).
+pitch+12 and 1.25x at batch 8 and 32 (after the header and the build);
+with `--synthesis`, K and L alone at batch 8 and 32 (after the header and
+the build).
 
 There is no CPU fallback: without CUDA the script fails.
 """
@@ -211,6 +218,12 @@ KERNELS = (
     # the offline planner's prediction coefficients (plain jnp, XLA-fused)
     ("coefficients", "signalsmith_stretch_torch/csrc/coefficients.cu",
      "signalsmith_stretch_tpu/planner.py:562"),
+    # the offline synthesis: the inverse modified DFT (XLA's FFT) and the
+    # overlap-add and assembly (plain jnp)
+    ("idft", "signalsmith_stretch_torch/csrc/idft.cu",
+     "signalsmith_stretch_tpu/stft.py:349"),
+    ("ola", "signalsmith_stretch_torch/csrc/ola.cu",
+     "signalsmith_stretch_tpu/engine.py:155"),
 )
 DFT_TOL = 3e-6        # of the spectrum's peak magnitude (tests/test_stft.py)
 
@@ -1166,6 +1179,127 @@ def check_dft():
                 library_ms=lib, bound=bound)
 
 
+def synthesis_inputs(cfg, batch):
+    """The sweep's outputs of one render of cfg on `batch` clips, every
+    fourth clip all zeros (the benchmark's gated clips: the silence bypass
+    takes them), with the model and the clips on the card."""
+    import torch
+    from signalsmith_stretch_torch import engine, planner, wavefront
+    model, clips = _model(cfg, batch)
+    clips[3::4] = 0
+    plan = model.plan
+    audio = torch.as_tensor(clips, device=DEVICE)
+    spectra, prev = engine.analyze_stage(audio, plan)
+    inputs = planner.plan_spectral(spectra, prev, plan.arrays, model.controls,
+                                   model.flags, plan.consts)
+    specs = wavefront.sweep(inputs, plan.consts.long_vertical_step)
+    return model, audio, specs
+
+
+def check_synthesis(batches=(BATCH,)):
+    """K and L at the three benchmark configurations' shapes (1.25x,
+    pitch+12, 3x), on a render's own sweep outputs: K within 3e-6 of the
+    blocks' peak of the plain synthesis (cuFFT on a padded copy), L bit-equal
+    to the plain assembly on K's blocks, with the bypass (on the zeroed
+    clips) and without; each timed alone and back to back beside its byte
+    bound, its plain version and, for K, torch.fft.ifft of the padded
+    spectra; K and L together (the stage, with L's energy sums) against the
+    plain stage.  Returns {"idft": entry, "ola": entry} of the 3x cell at
+    the first batch, each with every cell's numbers under "cells"."""
+    import torch
+    import torch.nn.functional as F
+    from signalsmith_stretch_torch import engine, ops, stft
+    from signalsmith_stretch_torch.ops import idft, ola
+    cells = {"idft": {}, "ola": {}}
+    for batch in batches:
+        for cfg in (STRETCH, MAPPED, RANDOM):
+            model, audio, specs = synthesis_inputs(cfg, batch)
+            plan, basis = model.plan, model.plan.basis
+            label = f"{cfg[0]}, batch {batch}"
+            got = idft.synthesize(specs, basis)
+            ref = stft.synthesize(specs, basis)
+            err = max_abs(got, ref)
+            peak = float(ref.abs().max())
+            if not err <= DFT_TOL * peak:
+                raise SystemExit(f"idft ({label}): kernel differs from the "
+                                 f"plain synthesis by {err:g}, "
+                                 f"{err / peak:.3g} of the peak {peak:g}")
+            del ref
+            for a in (audio, None):
+                if not same_bits(ola.assemble(got, plan, a),
+                                 ola.assemble_plain(got, plan, a)):
+                    raise SystemExit(f"ola ({label}, bypass "
+                                     f"{'on' if a is not None else 'off'}):"
+                                     f" kernel differs from the plain "
+                                     f"assembly on K's blocks")
+            nF, N = got.numel() // basis.block_samples, basis.fft_samples
+            k_bytes = nF * (8 * basis.bands + 4 * basis.block_samples)
+            out_bytes = 4 * audio.shape[0] * 2 * plan.sched.out_samples
+            l_bytes = 4 * got.numel() + out_bytes + 4 * audio.numel()
+            k_flops = nF * 5 * N * (N.bit_length() - 1) // 2
+            reps = KERNEL_REPS // 4 if batch > BATCH else KERNEL_REPS
+            k = dict(max_abs_err=err, peak=peak, frames=nF,
+                     ms=cuda_ms(lambda: idft.synthesize(specs, basis), reps),
+                     ms_b2b=cuda_ms_b2b(
+                         lambda: idft.synthesize(specs, basis), reps),
+                     plain_ms=cuda_ms(lambda: stft.synthesize(specs, basis),
+                                      PLAIN_REPS),
+                     bound=bound_ms(k_bytes, k_flops))
+            padded = F.pad(specs, (0, N - basis.bands))
+            k["library_ms"] = cuda_ms(lambda: torch.fft.ifft(padded, dim=-1),
+                                      reps)
+            del padded
+            l_ = dict(max_abs_err=0.0, out_samples=plan.sched.out_samples,
+                      ms=cuda_ms(lambda: ola.assemble(got, plan, audio),
+                                 reps),
+                      ms_b2b=cuda_ms_b2b(
+                          lambda: ola.assemble(got, plan, audio), reps),
+                      plain_ms=cuda_ms(
+                          lambda: ola.assemble_plain(got, plan, audio),
+                          PLAIN_REPS),
+                      bound=bound_ms(l_bytes, 0))
+            del got
+            stage_ms = cuda_ms(
+                lambda: engine.synthesis_stage(specs, plan, audio=audio),
+                reps)
+            stage_b2b = cuda_ms_b2b(
+                lambda: engine.synthesis_stage(specs, plan, audio=audio),
+                reps)
+            with ops.plain():
+                plain_stage = cuda_ms(
+                    lambda: engine.synthesis_stage(specs, plan, audio=audio),
+                    PLAIN_REPS)
+            both = bound_ms(k_bytes + l_bytes, k_flops)
+            l_.update(stage_ms=stage_ms, stage_b2b=stage_b2b,
+                      plain_stage_ms=plain_stage, stage_bound_ms=both[0])
+            for name, e, nbytes in (("idft", k, k_bytes),
+                                    ("ola", l_, l_bytes)):
+                share = 100 * e["bound"][0] / e["ms_b2b"]
+                print(f"{'K' if name == 'idft' else 'L'} {name} ({label}): "
+                      f"{e['ms']:.4f} ms alone, {e['ms_b2b']:.4f} back to "
+                      f"back, bound {e['bound'][0]:.4f} ms ({e['bound'][1]}: "
+                      f"{nbytes / 1e9:.3f} GB, {share:.1f}% of it back to "
+                      f"back), plain {e['plain_ms']:.3f} ms"
+                      + (f", torch.fft.ifft of the padded spectra "
+                         f"{e['library_ms']:.3f} ms; max abs difference "
+                         f"{err:g} = {err / peak:.3g} of the peak"
+                         if name == "idft" else
+                         ", bit-equal to the plain assembly on K's blocks"))
+                cells[name][label] = e
+            print(f"K and L ({label}): the stage {stage_ms:.4f} ms alone, "
+                  f"{stage_b2b:.4f} back to back, bound {both[0]:.4f} ms "
+                  f"({100 * both[0] / stage_b2b:.1f}%), the plain stage "
+                  f"(cuFFT on a padded copy, ~50 operations) "
+                  f"{plain_stage:.3f} ms")
+            del specs, audio, model
+            torch.cuda.empty_cache()
+    first = f"{RANDOM[0]}, batch {batches[0]}"
+    return {name: dict(cells[name][first], cells={
+        label: {k: v for k, v in e.items() if k != "bound"}
+        | {"bound_ms": e["bound"][0], "bound_by": e["bound"][1]}
+        for label, e in cells[name].items()}) for name in cells}
+
+
 def check_formant_scans():
     """E (the envelope's eight decay passes in one launch, and each single
     pass) and F (the top-3 scan) against their plain loops, on the
@@ -1265,8 +1399,8 @@ def check_formant_scans():
 def counters():
     from signalsmith_stretch_torch import wavefront
     from signalsmith_stretch_torch.ops import (block_sweep, coefficients,
-                                               dft, draws, interp, peaks,
-                                               scan_ops)
+                                               dft, draws, idft, interp, ola,
+                                               peaks, scan_ops)
     return {"interp_multi": interp.launches, "sweep": wavefront.launches,
             "iir": scan_ops.launches, "dft": dft.launches,
             "decay": scan_ops.decay_launches,
@@ -1274,18 +1408,20 @@ def counters():
             "peaks_runs": peaks.runs_launches,
             "peaks_out": peaks.out_launches,
             "block_sweep": block_sweep.launches, "draws": draws.launches,
-            "coefficients": coefficients.launches}
+            "coefficients": coefficients.launches, "idft": idft.launches,
+            "ola": ola.launches}
 
 
 def reset_counters():
     from signalsmith_stretch_torch import wavefront
     from signalsmith_stretch_torch.ops import (block_sweep, coefficients,
-                                               dft, draws, interp, peaks,
-                                               scan_ops)
+                                               dft, draws, idft, interp, ola,
+                                               peaks, scan_ops)
     interp.launches = wavefront.launches = scan_ops.launches = 0
     dft.launches = scan_ops.decay_launches = scan_ops.top3_launches = 0
     peaks.launches = peaks.runs_launches = peaks.out_launches = 0
     block_sweep.launches = draws.launches = coefficients.launches = 0
+    idft.launches = ola.launches = 0
 
 
 def is_random(plan):
@@ -1304,7 +1440,7 @@ def expected_launches(flags, random=False):
     of C.  Under a custom map G's runs and out entries take the place of
     its one launch.  Above 2x, one launch of I draws every clip's per-bin
     time factors.  J forms every render's prediction coefficients in one
-    launch."""
+    launch, K its windowed blocks and L its output."""
     auto = flags.process_formants and flags.formant_auto
     custom = flags.mapped and flags.custom_map is not None
     return {"interp_multi": int(flags.mapped or random), "sweep": 1,
@@ -1312,7 +1448,8 @@ def expected_launches(flags, random=False):
             "decay": int(flags.process_formants), "top3": int(auto),
             "peaks_map": int(flags.mapped and not custom),
             "peaks_runs": int(custom), "peaks_out": int(custom),
-            "block_sweep": 0, "draws": int(random), "coefficients": 1}
+            "block_sweep": 0, "draws": int(random), "coefficients": 1,
+            "idft": 1, "ola": 1}
 
 
 def stage_split(model, audio):
@@ -1851,7 +1988,8 @@ def expected_stream_launches(flags, blocks, drawn=0):
     and out entries under a custom map); E once a block for formants, F
     with the base estimated; I once in each of the `drawn` blocks above
     2x (a flush at rate 0 runs such blocks too).  J never: a block forms
-    its coefficients in process_block."""
+    its coefficients in process_block; K and L never: a block synthesises
+    through stft.synthesize."""
     auto = flags.process_formants and flags.formant_auto
     custom = flags.mapped and flags.custom_map is not None
     return {"interp_multi": blocks, "sweep": 0,
@@ -1861,7 +1999,7 @@ def expected_stream_launches(flags, blocks, drawn=0):
             "peaks_map": blocks * int(flags.mapped and not custom),
             "peaks_runs": blocks * int(custom),
             "peaks_out": blocks * int(custom), "block_sweep": blocks,
-            "draws": drawn, "coefficients": 0}
+            "draws": drawn, "coefficients": 0, "idft": 0, "ola": 0}
 
 
 def _record_blocks(engine, clip, time_factor, n):
@@ -3061,6 +3199,11 @@ def main():
         build_kernels()
         coefficients_only()
         return print(smi_line())
+    if sys.argv[1:] == ["--synthesis"]:
+        header()
+        build_kernels()
+        check_synthesis((BATCH, 32))
+        return print(smi_line())
     if sys.argv[1:] == ["--scheduler-parallel"]:
         header()
         build_kernels()
@@ -3073,6 +3216,7 @@ def main():
     entries = check_kernels()
     random_interp, random_draws = check_random_interp()
     entries["draws"] = random_draws[RANDOM[0]]
+    entries.update(check_synthesis())
     launches = {name: 0 for name, _, _ in KERNELS}
     for counted in [render_config(cfg) for cfg in CONFIGS] + [
             check_automation()]:
@@ -3102,7 +3246,7 @@ def main():
                           chain_ms=e.get("chain_ms"),
                           chain_floor_ms=e.get("chain_floor_ms"))
                      | {k: e[k] for k in ("phases", "ctas_per_sm",
-                                          "registers") if k in e})
+                                          "registers", "cells") if k in e})
     # each kernel at the stream's shapes (one row), by stream
     for t in table:
         rows = stream_rows.get("peaks_split" if t["name"] == "peaks_runs"

@@ -4,9 +4,10 @@ The reference's exact() (signalsmith-stretch.h:467-491) chains outputSeek ->
 process -> flush over shared ring state.  Here the chain is: static schedule
 (schedule.py, host) -> timeline and frame windows -> batched modified-DFT
 analysis (kernel D) -> the planned spectral pipeline (planner + diagonal
-sweep) -> batched inverse FFT -> overlap-add -> WOLA-normalised assembly with the
-pre-roll cancellation (outputSeek :198-203), the reversed-tail subtraction
-(flush :444-454) and the silence bypass (:240-278) as closed-form tensor ops.
+sweep) -> batched inverse modified DFT (kernel K) -> overlap-add and
+WOLA-normalised assembly with the pre-roll cancellation (outputSeek
+:198-203), the reversed-tail subtraction (flush :444-454) and the silence
+bypass (:240-278), closed-form per output sample (kernel L).
 Every stage carries the clip batch as its leading dimension.
 """
 from __future__ import annotations
@@ -19,8 +20,8 @@ import torch.nn.functional as F
 
 from . import planner, spectral, stft, wavefront
 from . import schedule as sched_mod
-from .config import MAX_CLEAN_STRETCH, NOISE_FLOOR, StretchConfig
-from .ops import dft
+from .config import MAX_CLEAN_STRETCH, StretchConfig
+from .ops import dft, idft, ola
 from .tables import on_device
 from .utils.profiling import span
 
@@ -215,107 +216,17 @@ def analyze_stage(audio: torch.Tensor, plan: ExactPlan):
     return spectra, prev
 
 
-def _overlap_add(blocks_t: torch.Tensor, out_pos: np.ndarray,
-                 ring_len: int, block: int, interval: int) -> torch.Tensor:
-    """blocks_t [batch, ch, nB, block] -> ring [batch, ch, ring_len].
-
-    Blocks sit every `interval` samples.  Blocks k = g, g+m, g+2m, ... (with
-    m = ceil(block/interval)) never overlap, so each group is its blocks laid
-    end to end (a reshape), and the ring is the sum of the m group strips,
-    added in group order."""
-    batch, ch, n_b, _ = blocks_t.shape
-    first = int(out_pos[0])
-    m = -(-block // interval)
-    pad = m * interval - block
-    total = blocks_t.new_zeros((batch, ch, ring_len))
-    for g in range(m):
-        grp = blocks_t[:, :, g::m]
-        n_g = grp.shape[2]
-        if not n_g:
-            continue
-        flat = F.pad(grp, (0, pad)).reshape(batch, ch, n_g * m * interval)
-        ofs = first + g * interval
-        seg = max(0, min(n_g * m * interval, ring_len - ofs))
-        if seg:
-            total[..., ofs:ofs + seg] += flat[..., :seg]
-    return total
-
-
-def _bypass_tail(blocks_t, spans, weight, w0: int, T: int, L: int, preroll):
-    """Flush tail (:444-454) read at an un-advanced head `w0` from a ring
-    holding only the given block spans (bypassed stages never ran their
-    synthesis).  The outputSeek pre-roll cancellation (:198-203) lives at
-    ring [L, 2L) and is included where the window overlaps it."""
-    buf = blocks_t.new_zeros(blocks_t.shape[:2] + (2 * T,))
-    for k, a, b, off in spans:
-        buf[..., a - w0:b - w0] += blocks_t[:, :, k, off:off + (b - a)]
-    lo, hi = max(w0, L), min(w0 + 2 * T, 2 * L)
-    if lo < hi:   # -preroll[L-1-(j-L)] at ring position j
-        buf[..., lo - w0:hi - w0] -= preroll[..., 2 * L - hi:2 * L - lo].flip(-1)
-    t = buf / on_device(weight, buf.device)
-    return t[..., :T] - t[..., T:].flip(-1)
-
-
 def synthesis_stage(out_specs: torch.Tensor, plan: ExactPlan,
                     audio: torch.Tensor = None) -> torch.Tensor:
-    """Inverse FFT + overlap-add + WOLA-normalised assembly: out_specs
-    [batch, ch, nB, B] complex64 -> [batch, ch, out_samples].  With `audio`
-    given, the silence bypass (:240-278) selects, per clip, between the
-    normal assembly and passthrough/zeros with restricted-ring tails;
+    """Inverse modified DFT + overlap-add + WOLA-normalised assembly:
+    out_specs [batch, ch, nB, B] complex64 -> [batch, ch, out_samples]
+    (kernels K and L on the card; their plain versions, stft.synthesize and
+    ops/ola.assemble_plain, on a CPU tensor or inside ops.plain()).  With
+    `audio` given, the silence bypass (:240-278) selects, per clip, between
+    the normal assembly and passthrough/zeros with restricted-ring tails;
     without it the bypass is off."""
-    cfg, sch = plan.cfg, plan.sched
-    blocks_t = stft.synthesize(out_specs, plan.basis)   # [batch, ch, nB, block]
-    ring = _overlap_add(blocks_t, plan.arrays["out_pos"], sch.ring_len,
-                        cfg.block_samples, cfg.interval_samples)
-    w = on_device(plan.weight, ring.device)
-    L = sch.preroll_len
-    preroll = ring[..., :L] / w[:L]
-    # outputSeek: negate + reverse the pre-roll into the ring (:198-203)
-    ring[..., L:2 * L] -= preroll.flip(-1)
-
-    def read(a, n):
-        return ring[..., a:a + n] / w[a:a + n]
-
-    main = read(L, sch.main_out)
-    fz0 = L + sch.main_out
-    flush_zero = read(fz0, sch.flush_block_out)
-    head = fz0 + sch.flush_block_out
-    T = sch.tail_len
-    tail = read(head, T) - read(head + T, T).flip(-1)
-
-    sil = plan.silence
-    if audio is not None and sil is not None and sil.possible:
-        # total-energy scans (:231-238), per clip
-        def silent(start, length):
-            seg = audio[..., start:start + max(length, 0)]
-            return ((seg * seg).sum((1, 2)) < NOISE_FLOOR)[:, None, None]
-
-        pre_silent = silent(sch.seek_samples, sch.surplus)
-        main_silent = silent(sch.seek_length, sch.main_in)
-        no = torch.zeros_like(main_silent)
-        main_b = (main_silent & pre_silent) if sil.main_possible else no
-        fp, fa = sil.flush_possible_pre, sil.flush_possible_alone
-        if fp == fa:
-            flush_b = main_silent & fp
-        else:   # only reachable when the pre-roll was silent too (fp, not fa)
-            flush_b = main_silent & pre_silent & fp
-        if sil.pass_idx is not None:
-            passthrough = audio[..., on_device(sil.pass_idx, audio.device,
-                                               np.asarray, np.int64)]
-        else:
-            passthrough = torch.zeros_like(main)
-        main = torch.where(main_b, passthrough, main)
-        if sch.flush_block_out > 0:
-            flush_zero = torch.where(flush_b, torch.zeros_like(flush_zero),
-                                     flush_zero)
-            tail_pm = _bypass_tail(blocks_t, sil.pm_spans, sil.pm_weight,
-                                   L + sch.main_out, T, L, preroll)
-            tail = torch.where(flush_b, tail_pm, tail)
-        if sil.main_possible and T > 0:
-            tail_pre = _bypass_tail(blocks_t, sil.pre_spans, sil.pre_weight,
-                                    L, T, L, preroll)
-            tail = torch.where(main_b, tail_pre, tail)
-    return torch.cat([main, flush_zero, tail], -1)
+    return ola.assemble(idft.synthesize(out_specs, plan.basis), plan,
+                        audio=audio)
 
 
 def render_exact(audio: torch.Tensor, plan: ExactPlan,

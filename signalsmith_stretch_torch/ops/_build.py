@@ -58,6 +58,8 @@ ENTRY = {
                     + [ctypes.c_float] * 2 + [_P, _I, _P]),
     "coefficients": ("coefficients", "sst_coefficients",
                      [_P] * 8 + [_I] * 6 + [_P]),
+    "idft": ("idft", "sst_idft", [_P] * 6 + [_I] * 4 + [_P]),
+    "ola": ("ola", "sst_ola", [_P] * 8 + [_I] * 16 + [ctypes.c_float, _P]),
 }
 SOURCES = tuple(dict.fromkeys(source for source, _, _ in ENTRY.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -12,7 +12,9 @@ engine layers as static arithmetic.
 On the card the analysis runs kernel D (ops/dft.py, csrc/dft.cu), one
 half-length complex FFT per frame with the window, the pair packing and the
 half-bin twist fused in; its plain version, `analyze_plain`, is torch.fft
-(cuFFT on the card).  The synthesis is torch.fft on every device.
+(cuFFT on the card).  `synthesize` is torch.fft on every device: the plain
+version of kernel K (ops/idft.py), which the offline render runs on the
+card, and the stream's synthesis of its one block at a time.
 """
 from __future__ import annotations
 

@@ -45,7 +45,7 @@ def prepare(plan, controls, flags, device):
     `flags` reads (engine.render_exact, kernels or plain versions)."""
     from . import engine, planner, stft
     from .config import MAX_CLEAN_STRETCH
-    from .ops import dft, interp
+    from .ops import dft, idft, interp
     if not plan.sched.valid:
         return
     arrays, basis, sil = plan.arrays, plan.basis, plan.silence
@@ -54,6 +54,7 @@ def prepare(plan, controls, flags, device):
         on_device(a, device)
     on_device(arrays["frame_starts"], device, engine.window_index)
     dft.consts(basis, device)
+    idft.consts(basis, device)
     on_device(arrays["tf"], device, planner.draw_bounds)
     if not flags.mapped and not (arrays["tf"] > MAX_CLEAN_STRETCH).any():
         for shift in (arrays["tf"], arrays["ltf"]):

@@ -18,7 +18,10 @@ reference and in the JAX package on the CPU.  Kernel D, the analysis DFT,
 is one half-length complex FFT per frame (a mixed-radix Stockham FFT in
 shared memory) held to its plain version (cuFFT) at 3e-6 of the
 spectrum's peak magnitude, the JAX package's gate between its matmul DFT
-and its FFT (tests/test_stft.py:79).
+and its FFT (tests/test_stft.py:79).  Kernel K, the synthesis's inverse
+modified DFT (D's factorisation run backwards), is held to its plain
+version (cuFFT on a padded copy) at the same 3e-6 of the blocks' peak;
+kernel L, the assembly, bit for bit on K's own blocks.
 Renders (`chip_smoke.render_vs_plain`, the gate of chip_smoke.py): the
 spectral stage through A, B, C, E, F and G on the spectra of one analysis
 through D is bit-equal to its plain version; the whole render goes through
@@ -36,7 +39,8 @@ import chip_smoke  # noqa: E402
 from signalsmith_stretch_torch import ops, stft, wavefront  # noqa: E402
 from signalsmith_stretch_torch.config import StretchConfig  # noqa: E402
 from signalsmith_stretch_torch.models import StretchModel  # noqa: E402
-from signalsmith_stretch_torch.ops import dft, interp, scan_ops  # noqa: E402
+from signalsmith_stretch_torch.ops import (dft, idft, interp,  # noqa: E402
+                                           ola, scan_ops)
 from signalsmith_stretch_torch.planner import SweepInputs  # noqa: E402
 from signalsmith_stretch_torch.tables import on_device  # noqa: E402
 
@@ -189,10 +193,12 @@ def test_render_kernels_match_plain(dev, ratio, kw):
     assert len(to_card) <= 2 and all("Pinned" in c for c in to_card), to_card
 
 
-@pytest.mark.parametrize("preset,rate", [
-    ("preset_default", 48000), ("preset_cheaper", 44100),
-    ("preset_default", 8000), ("preset_default", 11025),
-    ("preset_default", 22050), ("preset_default", 96000)])
+DFT_PRESETS = [("preset_default", 48000), ("preset_cheaper", 44100),
+               ("preset_default", 8000), ("preset_default", 11025),
+               ("preset_default", 22050), ("preset_default", 96000)]
+
+
+@pytest.mark.parametrize("preset,rate", DFT_PRESETS)
 def test_dft_kernel_matches_plain(dev, preset, rate):
     """Every FFT size the kernel is built for: N 8192 (blocks 5760 and 4410,
     a block that leaves part of the frame empty), 1024 (960), 2048 (1323,
@@ -208,6 +214,146 @@ def test_dft_kernel_matches_plain(dev, preset, rate):
         assert got.shape == ref.shape and got.dtype == torch.complex64
         err = (got - ref).abs().max() / ref.abs().max()
         assert float(err) <= 3e-6, float(err)
+
+
+@pytest.mark.parametrize("preset,rate", DFT_PRESETS)
+def test_idft_kernel_matches_plain(dev, preset, rate):
+    """K at every FFT size D is built for (D's presets: blocks 5760, 4410,
+    960, 1323 (odd: samples stored one by one), 2646 and 11520), on spectra
+    from an aligned tensor and from a view one complex off 16-byte
+    alignment: within 3e-6 of the blocks' peak of the plain synthesis."""
+    basis = stft.StftBasis.for_config(getattr(StretchConfig, preset)(2, rate))
+    rng = np.random.default_rng(6)
+    n = 3 * 37 * basis.bands + 1
+    flat = _t((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+              .astype(np.complex64), dev)
+    for spectra in (flat[:-1].view(3, 37, basis.bands),
+                    flat[1:].view(3, 37, basis.bands)):
+        got = idft.synthesize(spectra, basis)
+        ref = stft.synthesize(spectra, basis)
+        assert got.shape == ref.shape and got.dtype == torch.float32
+        err = (got - ref).abs().max() / ref.abs().max()
+        assert float(err) <= 3e-6, float(err)
+
+
+def _clip_kinds(n, seed):
+    """Five stereo clips: loud, zeros, sub-noise (below the 1e-15 energy
+    floor), loud then zeros, zeros then loud (tests/test_silence_exact.py's
+    kinds)."""
+    rng = np.random.default_rng(seed)
+    loud = 0.3 * rng.standard_normal((2, n))
+    half = np.arange(n) < n // 2
+    return np.stack([loud, np.zeros((2, n)),
+                     1e-12 * rng.standard_normal((2, n)),
+                     np.where(half, loud, 0.0),
+                     np.where(half, 0.0, loud)]).astype(np.float32)
+
+
+# (ratio, preset): 1.25x, 1.0x (the +12 st cell's geometry), 3x; 0.2x, where
+# the main process bypasses; the cheaper preset's strips carry zero padding
+OLA_CASES = [(1.25, "preset_default"), (1.0, "preset_default"),
+             (3.0, "preset_default"), (0.2, "preset_cheaper"),
+             (1.25, "preset_cheaper")]
+
+
+@pytest.mark.parametrize("ratio,preset", OLA_CASES,
+                         ids=[f"{r}x-{p[7:]}" for r, p in OLA_CASES])
+def test_ola_kernel_matches_plain(dev, ratio, preset):
+    """L bit-equal to the plain assembly on K's own blocks (48 kHz stereo,
+    1 s of each kind of clip), the silence bypass on and off."""
+    from signalsmith_stretch_torch import engine
+    n = 48000
+    cfg = getattr(StretchConfig, preset)(2, 48000)
+    plan = engine.build_exact_plan(cfg, n, int(round(n * ratio)))
+    rng = np.random.default_rng(7)
+    shape = (5, 2, len(plan.arrays["out_pos"]), plan.basis.bands)
+    specs = _t((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+               .astype(np.complex64), dev)
+    blocks = idft.synthesize(specs, plan.basis)
+    audio = _t(_clip_kinds(n, 8), dev)
+    for a in (audio, None):
+        got = ola.assemble(blocks, plan, a)
+        assert got.shape == (5, 2, plan.sched.out_samples)
+        assert chip_smoke.same_bits(got, ola.assemble_plain(blocks, plan, a))
+
+
+def test_synthesis_launches(dev):
+    """engine.synthesis_stage on a 3x render's sweep outputs (a batch with
+    a zeroed clip): K and L once each and at most 8 device operations in
+    all (K, L and the two energy sums); inside ops.plain(), no kernel.  It
+    runs before the render cases below: after them, in the same process on
+    an H100, its profiler session recorded no device event at all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from signalsmith_stretch_torch import engine
+    model, audio, specs = chip_smoke.synthesis_inputs(
+        ("3x", 3.0, {}), 4)
+    torch.cuda.synchronize()
+    chip_smoke.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.synthesis_stage(specs, model.plan, audio=audio)
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert 2 <= len(on_card) <= 8, on_card
+    counts = chip_smoke.counters()
+    assert counts["idft"] == counts["ola"] == 1
+    assert sum(counts.values()) == 2
+    chip_smoke.reset_counters()
+    with ops.plain():
+        engine.synthesis_stage(specs, model.plan, audio=audio)
+    torch.cuda.synchronize()
+    assert not any(chip_smoke.counters().values())
+
+
+SYNTH_CELLS = {"1.25x": (1.25, {}),
+               "pitch12": (1.0, dict(semitones=12, tonality_hz=8000)),
+               "3x": (3.0, {})}
+
+
+@pytest.mark.parametrize("batch", [1, 32])
+@pytest.mark.parametrize("cell", sorted(SYNTH_CELLS))
+def test_render_synthesis_kernels_match_plain(dev, cell, batch):
+    """A whole render through the kernels (K and L among them) against the
+    plain versions at the three benchmark configurations (48 kHz stereo, 3 s
+    clips, chip_smoke's gate length for its randomised cells) at batch 1
+    and 32; in the batch every fourth clip is zeros and the second
+    sub-noise, so the silence bypass takes them.
+    - The gate of test_render_kernels_match_plain
+      (chip_smoke.render_vs_plain).  It is D's: on 1 s clips D's rounding
+      alone moves the chaotic render past it, by as much with the
+      synthesis's plain versions as with K and L (an H100 80GB HBM3).
+    - The zeroed clips render as the plain versions' bit for bit.
+    - The render is its stages through the kernels; with the synthesis's
+      plain versions on the same sweep outputs it differs by K's rounding
+      against cuFFT alone: an rms gap below -110 dB of the plain render's
+      rms, K's 3e-6 of the peak (-110.5 dB); measured -129 to -133 dB."""
+    from signalsmith_stretch_torch import engine, planner
+    ratio, kw = SYNTH_CELLS[cell]
+    n = 3 * 48000
+    model = StretchModel.build(channels=2, sample_rate=48000, in_samples=n,
+                               out_samples=int(round(n * ratio)), device=dev,
+                               **kw)
+    clips = chip_smoke.make_corpus(batch, 2, n, 48000, seed=12)
+    clips[3::4] = 0
+    clips[1:2] *= 1e-12
+    audio = _t(clips, dev)
+    ok, gate = chip_smoke.render_vs_plain(model, audio)
+    assert ok, gate
+    got, want = model.batched(audio), model.batched(audio, plain=True)
+    for i in range(3, batch, 4):
+        assert torch.equal(got[i], want[i])
+    plan = model.plan
+    spectra, prev = engine.analyze_stage(audio, plan)
+    specs = wavefront.sweep(planner.plan_spectral(
+        spectra, prev, plan.arrays, model.controls, model.flags, plan.consts),
+        plan.consts.long_vertical_step)
+    assert torch.equal(engine.synthesis_stage(specs, plan, audio=audio), got)
+    with ops.plain():
+        synth_plain = engine.synthesis_stage(specs, plan, audio=audio)
+    gap = chip_smoke.rel_err_db(got.cpu().numpy(), synth_plain.cpu().numpy())
+    assert gap < -110.0, gap
 
 
 @pytest.mark.parametrize("is_min,backward", [
